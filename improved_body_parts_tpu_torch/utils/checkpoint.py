@@ -1,0 +1,122 @@
+"""Weights into the port's ``PoseNet``, without jax.
+
+  * ``state_dict_from_flax`` turns the JAX package's variables (nested dicts
+    of numpy arrays: ``params`` and ``batch_stats``) into a state_dict with
+    the reference's key names. It inverts the key mapping of
+    ``improved_body_parts_tpu/utils/checkpoint.map_reference_key``
+    (:87-172): conv HWIO -> OIHW, Dense (I, O) -> Linear (O, I), BatchNorm
+    ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
+    ``running_mean``/``running_var``.
+  * ``load_reference_pth`` reads a released reference ``.pth``.
+
+The JAX converter cannot be shared because its module imports jax.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+# Residual sub-module -> index inside the reference's convBlock/skipConv
+_RES_CONV = {"conv1": 0, "conv2": 3, "conv3": 6}
+_HG_SLOT = {"up1": 0, "low1": 1, "low2": 2, "refine": 3, "inner": 4}
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def _residual_key(sub: str, kind: str) -> str:
+    """('conv2', 'bn') -> 'convBlock.4'; ('skip', 'conv') -> 'skipConv.0'."""
+    if sub == "skip":
+        return "skipConv." + ("0" if kind == "conv" else "1")
+    return f"convBlock.{_RES_CONV[sub] + (kind == 'bn')}"
+
+
+def flax_to_reference_key(path: Tuple[str, ...], leaf: str) -> str:
+    """Reference state_dict key for one Flax leaf (``path`` of module names,
+    ``leaf`` in kernel/bias/scale/mean/var). Raises KeyError if unmapped."""
+    torch_leaf = "weight" if leaf == "kernel" else _BN_LEAF[leaf]
+    top, rest = path[0], path[1:]
+    if top == "pre":
+        name = rest[0]
+        if name == "conv1":
+            mod = "pre.conv1" if rest[1] == "conv" else "pre.bn1"
+        elif name in ("res1", "res2"):
+            mod = f"pre.{name}." + _residual_key(rest[1], rest[2])
+        else:
+            i = re.fullmatch(r"dilated(\d)", name).group(1)
+            mod = f"pre.dilation.{i}.{rest[1]}"
+        return f"{mod}.{torch_leaf}"
+    m = re.fullmatch(r"hg(\d+)", top)
+    if m:
+        d, slot = re.fullmatch(r"d(\d)_(\w+)", rest[0]).groups()
+        base = f"hourglass.{m.group(1)}.hg.{d}.{_HG_SLOT[slot]}"
+        if slot == "refine":
+            return f"{base}.{rest[1]}.{torch_leaf}"
+        return f"{base}.{_residual_key(rest[1], rest[2])}.{torch_leaf}"
+    m = re.fullmatch(r"features(\d+)", top)
+    if m:
+        s, part = re.fullmatch(r"s(\d)_(\w+)", rest[0]).groups()
+        base = f"features.{m.group(1)}.before_regress.{s}"
+        if part == "se":
+            fc = "0" if rest[1] == "fc1" else "2"
+            return f"{base}.2.fc.{fc}.{torch_leaf}"
+        i = int(part[len("conv"):]) - 1
+        return f"{base}.{i}.{rest[1]}.{torch_leaf}"
+    m = re.fullmatch(r"out(\d+)_s(\d)", top)
+    if m:
+        return f"outs.{m.group(1)}.{m.group(2)}.conv.{torch_leaf}"
+    m = re.fullmatch(r"merge_(pred|feat)(\d+)_s(\d)", top)
+    if m:
+        kind = "merge_preds" if m.group(1) == "pred" else "merge_features"
+        return f"{kind}.{m.group(2)}.{m.group(3)}.conv.{rest[0]}.{torch_leaf}"
+    raise KeyError(f"no reference key for flax leaf {path}/{leaf}")
+
+
+def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[Tuple[str, ...], str, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path, k, v
+
+
+def state_dict_from_flax(params: Dict[str, Any],
+                         batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``(params, batch_stats)`` -> reference-keyed fp32 state_dict
+    (every BatchNorm also gets ``num_batches_tracked`` = 0, so the result
+    loads into ``PoseNet`` with ``strict=True``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for path, leaf, val in _leaves(tree):
+            arr = np.asarray(val, np.float32)
+            if leaf == "kernel":
+                if arr.ndim == 4:          # HWIO -> OIHW
+                    arr = arr.transpose(3, 2, 0, 1)
+                elif arr.ndim == 2:        # Dense (I, O) -> Linear (O, I)
+                    arr = arr.T
+            key = flax_to_reference_key(path, leaf)
+            out[key] = torch.from_numpy(np.array(arr))   # a writable copy
+            if leaf == "mean":
+                prefix = key[:-len("running_mean")]
+                out[prefix + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` ({'weights': state_dict, ...} or a bare
+    state_dict) -> state_dict for ``PoseNet``: the ``module.``/``posenet.``
+    prefixes of wrapped models are stripped and ``criterion.`` buffers
+    dropped."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("weights", ckpt)
+    out = {}
+    for key, val in sd.items():
+        for pre in ("module.", "posenet."):
+            if key.startswith(pre):
+                key = key[len(pre):]
+        if not key.startswith("criterion."):
+            out[key] = val
+    return out

@@ -1,0 +1,16 @@
+"""Device selection. Nothing on the serving path falls back to the CPU on its
+own: callers pass an explicit ``device``, and ``require_cuda`` is the one
+place that asks for the card."""
+
+from __future__ import annotations
+
+import torch
+
+
+def require_cuda() -> torch.device:
+    """Return ``torch.device("cuda")``, or raise if no CUDA card is visible."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device is required (torch.cuda.is_available() is False; "
+            f"torch {torch.__version__}, built for CUDA {torch.version.cuda})")
+    return torch.device("cuda")
