@@ -6,7 +6,8 @@ JAX package (``configs``, ``ops.group``, ``ops.group_cpp``, ``data.synthetic``,
 ``data.heatmaps``, ``utils.common``, ``infer.serving``) are reused, not copied.
 
 Layout mirrors the JAX package: ``models/`` (the IMHN ``PoseNet``), ``ops/``
-(peaks, limbs, the two hand-written CUDA kernels and their build), ``infer/``
-(the batched flip-TTA ``Predictor``), ``utils/`` (device and checkpoint
-helpers) and ``csrc/`` (the CUDA sources).
+(peaks, limbs, warps, the two hand-written CUDA kernels and their build),
+``infer/`` (the ``Predictor``: flip, multi-scale and rotation TTA),
+``apps/`` (the demo and evaluate entry points), ``utils/`` (device and
+checkpoint helpers) and ``csrc/`` (the CUDA sources).
 """

@@ -2,9 +2,8 @@
 //
 // Replaces the TPU kernel improved_body_parts_tpu/ops/pallas_kernels.py
 // fused_peaks_pallas (_make_fused_peaks_kernel). Per channel, in one pass:
-//   * NMS as in nms.cu, written into shared memory (h*w fp32: 64 KB at
-//     128x128, so the kernel opts in to more than 48 KB of dynamic shared
-//     memory); n_raw = the number of cells kept (a block reduction);
+//   * NMS as in nms.cu, written into the block's NMS map; n_raw = the number
+//     of cells kept (a block reduction);
 //   * P rounds of masked arg-max over the NMS map: the highest score, and on
 //     ties the lowest flat index, exactly the Pallas kernel's
 //     max -> (== max) -> min index. Each round records the score, (y, x)
@@ -13,14 +12,23 @@
 //     every later round picks cell 0 (the lowest index holding 0), exactly
 //     as the Pallas kernel does.
 //
+// Where the NMS map lives:
+//   * in shared memory when h*w fp32 fits one block (64 KB at 128x128, so
+//     the kernel opts in to more than 48 KB of dynamic shared memory);
+//   * otherwise in a global scratch of (k, h, w) fp32 that the wrapper
+//     allocates (e.g. 510 KB a channel at 272x480, a 1088x1920 frame). Each
+//     block reads and writes only its own channel's slice, and the block
+//     barriers that order the rounds also order those global accesses; the
+//     scratch of a few MB stays in the 50 MB L2 across the P rounds.
+//
 // Bound: device-memory bytes (the map is read once from global memory; the
-// P rounds run out of shared memory) and, at P = 32, the 2 block barriers a
-// round costs. One block per channel: 144 blocks at B=8, about one wave on
-// 132 SMs. The arg-max of a round is one reduction over 64-bit keys
-// (order-preserving float bits << 32 | ~flat_index), so the highest key is
-// the highest score with the lowest index; the patch is read straight from
-// global memory, so no one-hot contractions are needed. Pure compares and
-// copies: bit-identical to the plain PyTorch version.
+// P rounds run out of shared memory or L2) and, at P = 32, the 2 block
+// barriers a round costs. One block per channel: 144 blocks at B=8, about
+// one wave on 132 SMs. The arg-max of a round is one reduction over 64-bit
+// keys (order-preserving float bits << 32 | ~flat_index), so the highest key
+// is the highest score with the lowest index; the patch is read straight
+// from global memory, so no one-hot contractions are needed. Pure compares
+// and copies: bit-identical to the plain PyTorch version.
 
 #include <cuda_runtime.h>
 
@@ -37,19 +45,21 @@ __device__ __forceinline__ unsigned long long make_key(float v, int idx) {
          static_cast<unsigned int>(~idx);
 }
 
-template <bool PLUS>
+// SMEM: the NMS map in dynamic shared memory; else in scratch + c*h*w.
+template <bool PLUS, bool SMEM>
 __global__ void __launch_bounds__(kThreads)
-fused_peaks_kernel(const float* __restrict__ heat, float* __restrict__ scores,
-                   int* __restrict__ yx, int* __restrict__ n_raw,
-                   float* __restrict__ patches, int h, int w, int max_peaks,
-                   int win, float thre) {
-  extern __shared__ float nm[];  // (h, w) NMS map of this channel
+fused_peaks_kernel(const float* __restrict__ heat, float* __restrict__ scratch,
+                   float* __restrict__ scores, int* __restrict__ yx,
+                   int* __restrict__ n_raw, float* __restrict__ patches, int h,
+                   int w, int max_peaks, int win, float thre) {
+  extern __shared__ float smem_nm[];
   __shared__ unsigned long long warp_best[kWarps];
   __shared__ int warp_count[kWarps];
 
   const int c = blockIdx.x;
   const int hw = h * w;
   const float* m = heat + static_cast<size_t>(c) * hw;
+  float* nm = SMEM ? smem_nm : scratch + static_cast<size_t>(c) * hw;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -125,17 +135,19 @@ fused_peaks_kernel(const float* __restrict__ heat, float* __restrict__ scores,
   }
 }
 
-template <bool PLUS>
-int launch(const float* heat, float* scores, int* yx, int* n_raw,
-           float* patches, int k, int h, int w, int max_peaks, int win,
-           float thre, cudaStream_t stream) {
-  const int smem = h * w * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_peaks_kernel<PLUS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_peaks_kernel<PLUS><<<k, kThreads, smem, stream>>>(
-      heat, scores, yx, n_raw, patches, h, w, max_peaks, win, thre);
+template <bool PLUS, bool SMEM>
+int launch(const float* heat, float* scratch, float* scores, int* yx,
+           int* n_raw, float* patches, int k, int h, int w, int max_peaks,
+           int win, float thre, cudaStream_t stream) {
+  const int smem = SMEM ? h * w * static_cast<int>(sizeof(float)) : 0;
+  if (SMEM) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_peaks_kernel<PLUS, SMEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fused_peaks_kernel<PLUS, SMEM><<<k, kThreads, smem, stream>>>(
+      heat, scratch, scores, yx, n_raw, patches, h, w, max_peaks, win, thre);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,14 +155,22 @@ int launch(const float* heat, float* scores, int* yx, int* n_raw,
 
 // heat (k, h, w) fp32 -> scores (k, P) fp32, yx (k, P, 2) int32,
 // n_raw (k,) int32, patches (k, P, 2*win+1, 2*win+1) fp32; all contiguous
-// on the device. Launches on `stream`; returns the CUDA error as an int.
-extern "C" int ibp_fused_peaks(const float* heat, float* scores, int* yx,
-                               int* n_raw, float* patches, int k, int h, int w,
+// on the device. `scratch` is null (NMS map in shared memory) or a (k, h, w)
+// fp32 buffer for maps beyond one block's shared memory. Launches on
+// `stream`; returns the CUDA error as an int.
+extern "C" int ibp_fused_peaks(const float* heat, float* scratch,
+                               float* scores, int* yx, int* n_raw,
+                               float* patches, int k, int h, int w,
                                int max_peaks, int win, float thre, int plus,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return plus ? launch<true>(heat, scores, yx, n_raw, patches, k, h, w,
-                             max_peaks, win, thre, s)
-              : launch<false>(heat, scores, yx, n_raw, patches, k, h, w,
-                              max_peaks, win, thre, s);
+  if (scratch == nullptr)
+    return plus ? launch<true, true>(heat, scratch, scores, yx, n_raw, patches,
+                                     k, h, w, max_peaks, win, thre, s)
+                : launch<false, true>(heat, scratch, scores, yx, n_raw,
+                                      patches, k, h, w, max_peaks, win, thre, s);
+  return plus ? launch<true, false>(heat, scratch, scores, yx, n_raw, patches,
+                                    k, h, w, max_peaks, win, thre, s)
+              : launch<false, false>(heat, scratch, scores, yx, n_raw, patches,
+                                     k, h, w, max_peaks, win, thre, s);
 }

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
+``nvcc`` compiles each source to an object, all sources at once in
+parallel processes, and links them into one shared library with a plain C
 interface, loaded with ``ctypes``. The build runs at first use, keyed on a
 hash of the sources and flags, into ``build/torch_kernels/`` at the root of
 the checkout; a later call (or process) with the same sources loads the
@@ -23,16 +24,16 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     # heat, out, n, h, w, thre, plus, stream
     "ibp_nms": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, _P],
-    # heat, scores, yx, n_raw, patches, k, h, w, max_peaks, win, thre, plus,
-    # stream
-    "ibp_fused_peaks": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # heat, scratch, scores, yx, n_raw, patches, k, h, w, max_peaks, win,
+    # thre, plus, stream
+    "ibp_fused_peaks": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_float, ctypes.c_int, _P],
 }
@@ -70,14 +71,34 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs, procs = [], []
+    for src in _sources():           # one nvcc per source, all started together
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log = []
+    for proc in procs:
+        log.append(proc.communicate()[0])
+    try:
+        for proc, text in zip(procs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)           # atomic: a concurrent loader sees all or none
     build_info.update(path=out, seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
+                      log="".join(log))
     return out
 
 

@@ -7,9 +7,9 @@ launch counts.
     ``pallas_kernels.py:fused_peaks_pallas``.
 
 Both are bound by device-memory bytes (each map is read once; the fused
-kernel keeps its NMS map in shared memory for its P arg-max rounds), so each
-is one pass with no intermediate in device memory; the notes at the top of
-each source say more. Both are pure compares, copies and integer arithmetic,
+kernel keeps its NMS map in shared memory for its P arg-max rounds, or, for
+a map beyond one block's shared memory, in a global scratch that stays in
+L2), so each is one launch; the notes at the top of each source say more. Both are pure compares, copies and integer arithmetic,
 so a kernel and its plain version agree bit for bit.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
@@ -153,17 +153,15 @@ def fused_peaks_plain(heat: torch.Tensor, thre: float = 0.1,
 def fused_peaks(heat: torch.Tensor, thre: float = 0.1, max_peaks: int = 32,
                 footprint: str = "plus", win: int = 2):
     """``fused_peaks_plain`` on the CPU; the CUDA kernel
-    (csrc/fused_peaks.cu) on the card. Raises for maps larger than one
-    block's shared memory."""
+    (csrc/fused_peaks.cu) on the card. A map larger than one block's shared
+    memory takes the kernel's variant that keeps its NMS map in a global
+    scratch (same results, bit for bit)."""
     if heat.device.type == "cpu":
         return fused_peaks_plain(heat, thre, max_peaks, footprint, win)
     plus = _check_footprint(footprint)
     _check_cuda_input(heat)
     k, h, w = heat.shape
     size = 2 * win + 1
-    if h * w * 4 > FUSED_PEAKS_SMEM_BYTES:
-        raise ValueError(f"a {h}x{w} map needs {h * w * 4} bytes of shared "
-                         f"memory; the budget is {FUSED_PEAKS_SMEM_BYTES}")
     if size * size > 1024 or max_peaks < 1:
         raise ValueError(f"unsupported win={win} / max_peaks={max_peaks}")
     dev = heat.device
@@ -172,10 +170,15 @@ def fused_peaks(heat: torch.Tensor, thre: float = 0.1, max_peaks: int = 32,
     n_raw = torch.empty((k,), dtype=torch.int32, device=dev)
     patches = torch.empty((k, max_peaks, size, size), dtype=torch.float32,
                           device=dev)
+    # the NMS map of a map beyond shared memory; freed on return, which is
+    # safe: the caching allocator reuses it only for later work on this stream
+    scratch = (torch.empty_like(heat) if h * w * 4 > FUSED_PEAKS_SMEM_BYTES
+               else None)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.ibp_fused_peaks(
-            heat.data_ptr(), scores.data_ptr(), yx.data_ptr(),
+            heat.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            scores.data_ptr(), yx.data_ptr(),
             n_raw.data_ptr(), patches.data_ptr(), k, h, w, max_peaks, win,
             float(thre), int(plus), torch.cuda.current_stream().cuda_stream)
     if err:

@@ -1,14 +1,17 @@
 """Batched limb scoring (line integral over the limb maps) and greedy
 one-to-one connection selection.
 
-Port of ``improved_body_parts_tpu/ops/limbs.py`` (:145-319) with the batch
-as a leading dimension. ``score_connections`` runs the reference sampling
-(parse_skeletons.py:353-374): n = min(round(len + 1), mid_num) points per
-candidate limb, rounded to integer pixels of the virtual x4 cv2-cubic
-upsampled map and read from the stride map with the Keys a=-0.75 kernel.
-The stride map is read by a direct gather of the 4x4 clamped taps,
-accumulated tap by tap; the JAX package's one-hot matmul sampler was a
-workaround for gathers on the TPU.
+Port of ``improved_body_parts_tpu/ops/limbs.py`` (:50-319) with the batch
+as a leading dimension. ``score_connections`` runs either sampling of the
+JAX package:
+  * "reference" (parse_skeletons.py:353-374): n = min(round(len + 1),
+    mid_num) points per candidate limb, rounded to integer pixels of the
+    virtual x4 cv2-cubic upsampled map and read from the stride map with
+    the Keys a=-0.75 kernel;
+  * "bilinear": n = min(round(len) + 1, mid_num), at least 2, unrounded
+    sub-pixel points, bilinear reads of the stride map.
+The stride map is read by direct gathers of the clamped taps; the JAX
+package's one-hot matmul samplers were a workaround for gathers on the TPU.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from improved_body_parts_tpu.configs import LIMBS_CONN
-from improved_body_parts_tpu_torch.ops.peaks import CV2_CUBIC_A
+from improved_body_parts_tpu_torch.ops.peaks import CV2_CUBIC_A, PeakTable
 
 
 class ConnectionCandidates(NamedTuple):
@@ -77,6 +80,27 @@ def cubic_sample(maps: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
     return out
 
 
+def bilinear_sample(maps: torch.Tensor, fx: torch.Tensor,
+                    fy: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of ``maps`` (N, h, w) at float coords fx, fy (N, M),
+    clamped to the map (the JAX package's ``bilinear_sample``)."""
+    n, h, w = maps.shape
+    flat = maps.reshape(n, h * w)
+    x = torch.clamp(fx, 0.0, w - 1.0)
+    y = torch.clamp(fy, 0.0, h - 1.0)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    ix0, iy0 = x0.long(), y0.long()
+    ix1 = torch.clamp(ix0 + 1, max=w - 1)
+    iy1 = torch.clamp(iy0 + 1, max=h - 1)
+    fx, fy = x - x0, y - y0
+
+    def tap(iy, ix):
+        return torch.gather(flat, 1, iy * w + ix)
+
+    return (tap(iy0, ix0) * (1 - fx) * (1 - fy) + tap(iy0, ix1) * fx * (1 - fy)
+            + tap(iy1, ix0) * (1 - fx) * fy + tap(iy1, ix1) * fx * fy)
+
+
 def score_connections(paf: torch.Tensor, peaks_xy: torch.Tensor,
                       peaks_score: torch.Tensor, peaks_valid: torch.Tensor,
                       img_h: torch.Tensor, *, mid_num: int = 20,
@@ -88,9 +112,9 @@ def score_connections(paf: torch.Tensor, peaks_xy: torch.Tensor,
     paf (B, h, w, L) stride-resolution limb maps; peaks_xy (B, K, P, 2)
     in padded-image pixels; peaks_score/peaks_valid (B, K, P); img_h (B,)
     ORIGINAL image heights (length prior, parse_skeletons.py:367)."""
-    if sampling != "reference":
-        raise NotImplementedError(f"sampling={sampling!r}: only the reference "
-                                  "sampling is ported")
+    if sampling not in ("reference", "bilinear"):
+        raise ValueError(f"unknown sampling {sampling!r}")
+    reference = sampling == "reference"
     dev = paf.device
     limbs = torch.as_tensor(LIMBS_CONN, device=dev, dtype=torch.long)
     src_xy = peaks_xy[:, limbs[:, 0]]                    # (B, L, P, 2)
@@ -102,25 +126,31 @@ def score_connections(paf: torch.Tensor, peaks_xy: torch.Tensor,
 
     diff = dst_xy[:, :, None, :, :] - src_xy[:, :, :, None, :]   # (B,L,P,P,2)
     limb_len = torch.sqrt(torch.sum(diff * diff, dim=-1))        # (B,L,P,P)
-    # n = min(round(len + 1), mid_num), at least 1 (parse_skeletons.py:353)
-    n_samples = torch.clamp(torch.round(limb_len + 1), max=mid_num).to(torch.int32)
-    n_samples = torch.clamp(n_samples, min=1)
+    if reference:
+        # n = min(round(len + 1), mid_num), at least 1 (parse_skeletons.py:353)
+        n_samples = torch.clamp(torch.round(limb_len + 1), max=mid_num)
+        n_samples = torch.clamp(n_samples.to(torch.int32), min=1)
+    else:
+        n_samples = torch.clamp(torch.round(limb_len) + 1, max=mid_num)
+        n_samples = torch.clamp(n_samples.to(torch.int32), min=2)
     slot = torch.arange(mid_num, device=dev, dtype=torch.float32)
     t = slot / torch.clamp(n_samples[..., None] - 1, min=1).to(torch.float32)
     sample_mask = slot < n_samples[..., None]                    # (B,L,P,P,S)
     t = torch.clamp(t, max=1.0)
 
     pts = src_xy[:, :, :, None, None, :] + t[..., None] * diff[:, :, :, :, None, :]
-    # integer pixels of the virtual x4 map, mapped to stride-map coords by
-    # the half-pixel convention (parse_skeletons.py:122-123)
-    pts = torch.round(pts)
+    if reference:
+        pts = torch.round(pts)      # integer pixels of the virtual x4 map
+    # mapped to stride-map coords by the half-pixel convention
+    # (parse_skeletons.py:122-123)
     fx = (pts[..., 0] + 0.5) / stride - 0.5
     fy = (pts[..., 1] + 0.5) / stride - 0.5
 
     B, L = fx.shape[:2]
     paf_cl = paf.permute(0, 3, 1, 2).float().reshape(B * L, *paf.shape[1:3])
-    samples = cubic_sample(paf_cl, fx.reshape(B * L, -1),
-                           fy.reshape(B * L, -1)).reshape(fx.shape)
+    sample = cubic_sample if reference else bilinear_sample
+    samples = sample(paf_cl, fx.reshape(B * L, -1),
+                     fy.reshape(B * L, -1)).reshape(fx.shape)
 
     n_f = n_samples.to(torch.float32)
     mean_paf = torch.sum(torch.where(sample_mask, samples, 0.0), dim=-1) / n_f
@@ -202,3 +232,12 @@ def connections_to_list(conns, P: int, limbs_conn=LIMBS_CONN) -> List[np.ndarray
         rows[:, 5] = np.asarray(conns.limb_len[l])[m]
         out.append(rows)
     return out
+
+
+def connections_to_numpy(conns: Connections, peaks: PeakTable,
+                         limbs_conn=LIMBS_CONN) -> List[np.ndarray]:
+    """Connection tables of ONE image (tensors, any device) -> the
+    reference's list of (k, 6) arrays, as ``connections_to_list``; P comes
+    from the peak table."""
+    host = Connections(*(t.detach().cpu().numpy() for t in conns))
+    return connections_to_list(host, peaks.score.shape[-1], limbs_conn)

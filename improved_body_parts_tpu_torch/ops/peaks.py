@@ -1,16 +1,18 @@
-"""Batched keypoint peak finding: NMS + top-P + bicubic sub-pixel refinement.
+"""Batched keypoint peak finding: NMS + top-P + sub-pixel refinement.
 
-Port of ``improved_body_parts_tpu/ops/peaks.py`` (:55-409) for the serving
-path. The JAX function runs per image under ``vmap``; here the batch is a
-leading dimension: ``find_peaks`` takes ``(B, h, w, K)`` maps and returns a
-``PeakTable`` whose fields carry a leading B.
+Port of ``improved_body_parts_tpu/ops/peaks.py`` (:55-409). The JAX function
+runs per image under ``vmap``; here the batch is a leading dimension:
+``find_peaks`` takes ``(B, h, w, K)`` maps and returns a ``PeakTable`` whose
+fields carry a leading B.
 
-Ported: refine ``"bicubic"`` with the ``"plus"`` NMS footprint (the
-reference's 66.1-AP path, parse_skeletons.py:126-176), the ``content_hw``
-cell mask before the top-P cut, ``n_raw``, and the ``fused=True`` path
-through the fused kernel with its own content-mask semantics. The other
-refinements (``centroid``, ``none``, a finer ``refine_upsample``) raise
-``NotImplementedError``.
+Every JAX option is ported: the NMS ``footprint`` ("plus" or "square"),
+the refinements ``"bicubic"`` (the reference's 66.1-AP cropped-patch
+cv2-cubic arg-max, parse_skeletons.py:126-176, with ``cubic_a`` and a finer
+``refine_upsample``), ``"centroid"`` (utils/util.py:188-213, the
+reference's swapped offset grids included) and ``"none"``, the
+``content_hw`` cell mask before the top-P cut, ``n_raw``, and ``fused=True``
+through the fused kernel (bicubic only, as in JAX; another refinement takes
+the unfused path).
 """
 
 from __future__ import annotations
@@ -114,11 +116,13 @@ def _gather_patches(maps: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
 
 def _refine_bicubic_from_patch(patch: torch.Tensor, cy: torch.Tensor,
                                cx: torch.Tensor, h: int, w: int, stride: int,
-                               cubic_a: float):
+                               cubic_a: float, up: Optional[int] = None):
     """Cropped-patch bicubic-upsample arg-max refinement into image pixels
     (parse_skeletons.py:141-173): patch (..., S, S) with zeros outside the
-    map, cy/cx (...). Returns (x_img, y_img, score), each (...)."""
-    up = stride
+    map, cy/cx (...). ``up`` is the patch upsample factor: ``stride`` (the
+    default) reproduces the reference's 1 px grid, a larger one samples the
+    same cubic surface on a finer grid. Returns (x_img, y_img, score)."""
+    up = up or stride
     size = 2 * WIN + 1
     bases_np, valids_np = _border_case_bases(WIN, up, cubic_a)
     bases = torch.from_numpy(bases_np).to(patch.device)
@@ -143,27 +147,58 @@ def _refine_bicubic_from_patch(patch: torch.Tensor, cy: torch.Tensor,
     return x_img, y_img, score
 
 
+def _refine_centroid(maps: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
+                     stride: int, radius: int = 2):
+    """Weighted-centroid refinement on the stride map, into image pixels
+    (utils/util.py:188-213; score = the box mean). maps (N, h, w), cy/cx
+    (N, P). A window that crosses the border keeps the raw cell and its
+    value, as the reference does. The reference's ``np.mgrid`` swaps the
+    two offset grids, so its x offset is the row (y) moment and vice versa;
+    that is reproduced."""
+    h, w = maps.shape[-2:]
+    patch = _gather_patches(maps, cy, cx, radius)       # zeros outside
+    fully_inb = ((cy >= radius) & (cy + radius <= h - 1)
+                 & (cx >= radius) & (cx + radius <= w - 1))
+    grid = torch.arange(-radius, radius + 1, device=maps.device,
+                        dtype=torch.float32)
+    total = patch.sum(dim=(-2, -1))
+    denom = torch.clamp(total, min=1e-12)
+    off_x = (patch * grid[:, None]).sum(dim=(-2, -1)) / denom    # the swap
+    off_y = (patch * grid[None, :]).sum(dim=(-2, -1)) / denom
+    box_mean = total / (2 * radius + 1) ** 2
+    raw = torch.gather(maps.flatten(-2), 1, cy * w + cx)
+    fx, fy = cx.to(torch.float32), cy.to(torch.float32)
+    fx = torch.where(fully_inb, fx + off_x, fx)
+    fy = torch.where(fully_inb, fy + off_y, fy)
+    score = torch.where(fully_inb, box_mean, raw)
+    return resized_coords(fx, stride), resized_coords(fy, stride), score
+
+
 def find_peaks(heat: torch.Tensor, *, thre: float = 0.1, max_peaks: int = 32,
-               stride: int = 4, refine: str = "bicubic", fused: bool = False,
+               stride: int = 4, refine: str = "bicubic",
+               footprint: Optional[str] = None, cubic_a: float = CV2_CUBIC_A,
+               fused: Optional[bool] = False,
                content_hw: Optional[torch.Tensor] = None,
                refine_upsample: Optional[int] = None) -> PeakTable:
     """Up to ``max_peaks`` peaks per joint-type channel, per image.
 
-    heat: (B, h, w, K) stride-resolution keypoint maps. ``content_hw``
-    ((B, 2) float [h, w] in padded-image pixels, or None) zeroes NMS cells
-    whose pixel footprint starts at or past the content extent BEFORE the
-    top-P cut and invalidates refined coordinates past it. ``fused`` runs
+    heat: (B, h, w, K) stride-resolution keypoint maps. ``refine`` is
+    "bicubic", "centroid" or "none"; ``footprint`` defaults to "plus" for
+    bicubic and "square" otherwise. ``content_hw`` ((B, 2) float [h, w] in
+    padded-image pixels, or None) zeroes NMS cells whose pixel footprint
+    starts at or past the content extent BEFORE the top-P cut and
+    invalidates refined coordinates past it. ``fused`` (bicubic only) runs
     NMS, top-P and patch extraction in the fused kernel; there the content
     mask is applied to the input maps instead (the fused kernel runs NMS
     itself), as in the JAX package. Ties in the top-P keep the lowest flat
     index first (``lax.top_k``'s order)."""
-    if refine != "bicubic" or refine_upsample not in (None, stride):
-        raise NotImplementedError(
-            f"refine={refine!r} refine_upsample={refine_upsample!r}: only the "
-            "reference bicubic refinement is ported")
-    footprint = "plus"          # the footprint the bicubic refinement pairs with
+    if refine not in ("bicubic", "centroid", "none"):
+        raise ValueError(f"unknown refine scheme: {refine!r}")
+    if footprint is None:
+        footprint = "plus" if refine == "bicubic" else "square"
     B, h, w, K = heat.shape
     dev = heat.device
+    size = 2 * WIN + 1
     chan_first = heat.permute(0, 3, 1, 2).float().contiguous()   # (B, K, h, w)
 
     cell_ok = None
@@ -176,7 +211,8 @@ def find_peaks(heat: torch.Tensor, *, thre: float = 0.1, max_peaks: int = 32,
                   < content_hw[:, 1:2])
         cell_ok = (row_ok[:, :, None] & col_ok[:, None, :])[:, None]  # (B,1,h,w)
 
-    if fused:
+    patches = None
+    if fused and refine == "bicubic":
         if cell_ok is not None:
             chan_first = torch.where(cell_ok, chan_first, 0.0)
         top_scores, yx, n_raw, patches = kernels.fused_peaks(
@@ -186,7 +222,7 @@ def find_peaks(heat: torch.Tensor, *, thre: float = 0.1, max_peaks: int = 32,
         cy = yx[..., 0].reshape(B, K, max_peaks).long()
         cx = yx[..., 1].reshape(B, K, max_peaks).long()
         n_raw = n_raw.reshape(B, K)
-        patches = patches.reshape(B, K, max_peaks, 2 * WIN + 1, 2 * WIN + 1)
+        patches = patches.reshape(B, K, max_peaks, size, size)
     else:
         nmsed = kernels.nms(chan_first.reshape(B * K, h, w), thre,
                             footprint=footprint).reshape(B, K, h, w)
@@ -202,13 +238,24 @@ def find_peaks(heat: torch.Tensor, *, thre: float = 0.1, max_peaks: int = 32,
         top_scores = top_scores[..., :max_peaks]
         top_idx = top_idx[..., :max_peaks]
         cy, cx = top_idx // w, top_idx % w
-        patches = _gather_patches(chan_first.reshape(B * K, h, w),
-                                  cy.reshape(B * K, -1), cx.reshape(B * K, -1),
-                                  WIN).reshape(B, K, max_peaks, 2 * WIN + 1,
-                                               2 * WIN + 1)
     valid = top_scores > 0.0
-    xs, ys, scores = _refine_bicubic_from_patch(patches, cy, cx, h, w, stride,
-                                                CV2_CUBIC_A)
+    maps = chan_first.reshape(B * K, h, w)
+    cy_f, cx_f = cy.reshape(B * K, -1), cx.reshape(B * K, -1)
+    if refine == "bicubic":
+        if patches is None:
+            patches = _gather_patches(maps, cy_f, cx_f, WIN).reshape(
+                B, K, max_peaks, size, size)
+        xs, ys, scores = _refine_bicubic_from_patch(
+            patches, cy, cx, h, w, stride, cubic_a, up=refine_upsample)
+    elif refine == "centroid":
+        xs, ys, scores = (t.reshape(B, K, max_peaks) for t in
+                          _refine_centroid(maps, cy_f, cx_f, stride))
+    else:
+        # the raw NMS cell's top-left in image pixels, and its value
+        xs = cx.to(torch.float32) * stride
+        ys = cy.to(torch.float32) * stride
+        scores = torch.gather(maps.flatten(-2), 1,
+                              cy_f * w + cx_f).reshape(B, K, max_peaks)
     xy = torch.stack([xs, ys], dim=-1)
     scores = torch.where(valid, scores, 0.0)
     if content_hw is not None:

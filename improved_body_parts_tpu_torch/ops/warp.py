@@ -1,0 +1,85 @@
+"""Resizing and bilinear affine warping of image batches, for multi-scale
+and rotation TTA.
+
+Port of ``improved_body_parts_tpu/ops/warp.py``. The JAX functions take one
+(H, W, C) array and are ``vmap``ped; these take (..., H, W, C) with any
+leading batch dimensions. ``resize_cubic_cv2`` is two plain contractions
+with cv2's INTER_CUBIC operator (``torch.einsum``, fp32: a float32 matmul on
+the card runs without TF32 unless ``torch.backends.cuda.matmul.allow_tf32``
+is set); ``affine_warp`` keeps the JAX package's fp32 arithmetic order for
+the sample coordinates, so ``floor`` falls on the same cell.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from improved_body_parts_tpu_torch.ops.peaks import resize1d_cubic_matrix
+
+
+def rotation_matrix(center_xy, angle_deg: float, scale: float = 1.0) -> np.ndarray:
+    """2x3 float32 matrix mapping OUTPUT pixel coords to INPUT coords for a
+    rotation by ``angle_deg`` about ``center_xy`` (cv2.getRotationMatrix2D's
+    convention, returned as the inverse map a gather-based warp needs)."""
+    a = np.deg2rad(angle_deg)
+    cos_a, sin_a = np.cos(a) / scale, np.sin(a) / scale
+    cx, cy = center_xy
+    return np.array([
+        [cos_a, sin_a, cx - cos_a * cx - sin_a * cy],
+        [-sin_a, cos_a, cy + sin_a * cx - cos_a * cy],
+    ], np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_operator(s_in: int, s_out: int, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(resize1d_cubic_matrix(s_in, s_out, -0.75),
+                           dtype=dtype, device=device)
+
+
+def resize_cubic_cv2(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.resize(INTER_CUBIC)-exact resize of (..., H, W, C) to
+    (..., out_h, out_w, C): Keys a=-0.75, half-pixel mapping, replicate
+    border, no antialiasing on downscale."""
+    h, w = img.shape[-3:-1]
+    my = _cubic_operator(h, out_h, img.device, img.dtype)
+    mx = _cubic_operator(w, out_w, img.device, img.dtype)
+    out = torch.einsum("hk,...hwc->...kwc", my, img)
+    return torch.einsum("wk,...hwc->...hkc", mx, out)
+
+
+def affine_warp(img: torch.Tensor, inv_m: np.ndarray, fill_value=0.0,
+                out_hw=None) -> torch.Tensor:
+    """Warp (..., H, W, C) by the inverse map ``inv_m`` (output -> input
+    coords), bilinear, constant fill outside. ``fill_value`` is a scalar or
+    a (C,) vector (cv2's per-channel borderValue); ``out_hw`` sets the
+    output canvas (default: the input's)."""
+    lead = img.shape[:-3]
+    h, w, c = img.shape[-3:]
+    oh, ow = out_hw or (h, w)
+    dev = img.device
+    m = torch.as_tensor(np.asarray(inv_m, np.float32), device=dev)
+    yy, xx = torch.meshgrid(torch.arange(oh, device=dev, dtype=torch.int32),
+                            torch.arange(ow, device=dev, dtype=torch.int32),
+                            indexing="ij")
+    xx, yy = xx.float(), yy.float()
+    xs = m[0, 0] * xx + m[0, 1] * yy + m[0, 2]
+    ys = m[1, 0] * xx + m[1, 1] * yy + m[1, 2]
+    inb = (xs >= 0) & (xs <= w - 1) & (ys >= 0) & (ys <= h - 1)
+    xc = torch.clamp(xs, 0, w - 1)
+    yc = torch.clamp(ys, 0, h - 1)
+    x0 = torch.floor(xc).long()
+    y0 = torch.floor(yc).long()
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fx = (xc - x0)[..., None]
+    fy = (yc - y0)[..., None]
+    flat = img.reshape(-1, h, w, c)
+    v = (flat[:, y0, x0] * (1 - fx) * (1 - fy) + flat[:, y0, x1] * fx * (1 - fy)
+         + flat[:, y1, x0] * (1 - fx) * fy + flat[:, y1, x1] * fx * fy)
+    fill = torch.as_tensor(fill_value, dtype=v.dtype, device=dev)
+    out = torch.where(inb[..., None], v, fill)
+    return out.reshape(*lead, oh, ow, c)

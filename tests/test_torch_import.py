@@ -19,7 +19,8 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "improved_body_parts_tpu_torch.ops.kernels" in mods
+    for m in ("ops.kernels", "ops.warp", "apps.demo_image", "apps.evaluate"):
+        assert "improved_body_parts_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -170,3 +170,33 @@ def test_fused_peaks_cuda_matches_plain(cuda, footprint):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert got[2][3] > 32
+
+
+def _large_maps(device) -> torch.Tensor:
+    """(18, 272, 480): the joint maps of one 1088x1920 frame, beyond one
+    block's shared memory; channel 3 saturated, channel 5 empty (every slot
+    repeats cell (0, 0)), channel 7 holds -0 and +0 ties."""
+    g = torch.Generator().manual_seed(1)
+    heat = torch.rand((18, 272, 480), generator=g) * 0.6
+    heat[3] = torch.where(
+        (torch.arange(272)[:, None] + torch.arange(480)[None]) % 2 == 0,
+        heat[3] + 0.5, torch.zeros(()))
+    heat[5] = 0.0
+    heat[7] = torch.where(heat[7] < 0.3, torch.tensor(-0.0), heat[7])
+    return heat.to(device)
+
+
+@pytest.mark.parametrize("footprint", FOOTPRINTS)
+def test_fused_peaks_cuda_matches_plain_beyond_shared_memory(cuda, footprint):
+    heat = _large_maps(cuda)
+    assert heat.shape[1] * heat.shape[2] * 4 > kernels.FUSED_PEAKS_SMEM_BYTES
+    n0 = kernels.fused_peaks.launches
+    got = kernels.fused_peaks(heat, 0.1, 32, footprint)
+    torch.cuda.synchronize()
+    assert kernels.fused_peaks.launches == n0 + 1
+    want = kernels.fused_peaks_plain(heat, 0.1, 32, footprint)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[2][3] > 32 and got[2][5] == 0
+    assert (got[1][5] == 0).all()
+
