@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``improved_body_parts_tpu_torch``) on
 one NVIDIA GPU: builds the CUDA kernels from ``csrc/``, checks each against
-its plain PyTorch version (``fused_peaks`` also on maps beyond one block's
-shared memory), runs the full-width ``Canonical`` model, the
+its plain PyTorch version (``fused_peaks`` on an edge-case grid at three map
+shapes) and times it beside its bound, runs the full-width ``Canonical``
+model, the
 post-processing on GT-rendered scenes, the batched flip-TTA serving path
 behind ``PipelinedServer``, multi-scale and rotation TTA (single image, fp32
 against the CPU; served, bf16), and the port's evaluator and demo entry
@@ -13,8 +14,10 @@ points on in-memory synthetic frames (the card's machine has no cv2).
 Phases print on earlier lines; any failure raises and the exit code is not
 0. Without a CUDA device it exits 2 before doing anything. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launch count in the serving run, its error against the plain version
-and both times. Weights are random, drawn from a seed. Imports no jax.
+its launch count in the serving run and per batch, its error against the
+plain version, its times (input warm in L2 and cold), its bound, the plain
+version's time and, for ``fused_peaks``, the unfused route's. Weights are
+random, drawn from a seed. Imports no jax and nothing of the JAX package.
 """
 
 import copy
@@ -37,9 +40,14 @@ TTA_SCALES = (0.5, 1.0, 1.5, 2.0)   # the reference INI's scale_search
 TTA_DEPTH = 2
 TTA_REQUESTS = 32
 N_EVAL = 16
-# maps beyond one block's shared memory: 256^2 stride maps (a 1024^2 frame)
-# and 272x480 (a 1088x1920 frame)
-LARGE_MAP_SHAPES = ((18, 256, 256), (18, 272, 480))
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+# fused_peaks' edge-case grid, held exactly against the plain version at the
+# main-path shape (B=8 x 18 maps of 128^2), a 1024^2 frame's 256^2 maps and
+# a 1088x1920 frame's 272x480 maps
+EDGE_SHAPES = ((144, 128, 128), (18, 256, 256), (18, 272, 480))
+EDGE_THRES = (0.1, 0.0, -0.2)
+EDGE_PEAKS = (1, 8, 33)
+EDGE_FOOTPRINTS = (("plus", 2), ("square", 1))
 
 
 def phase(name: str) -> None:
@@ -53,10 +61,18 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, runs: int = TIMING_RUNS) -> float:
+_flush = []
+
+
+def device_ms(fn, runs: int = TIMING_RUNS, cold: bool = False) -> float:
     """Median per-call time between two CUDA events, after 3 warm-up calls.
     A sleep kernel queued first keeps the card busy while the host enqueues
-    the call, so launch latency is hidden wherever the host keeps ahead."""
+    the call, so launch latency is hidden wherever the host keeps ahead.
+    ``cold`` writes 256 MB before each call (outside the events), so the
+    call finds its inputs in device memory and not in the 50 MB L2."""
+    if cold and not _flush:
+        _flush.append(torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                                  device="cuda"))
     for _ in range(3):
         fn()
     times = []
@@ -64,6 +80,8 @@ def device_ms(fn, runs: int = TIMING_RUNS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
+        if cold:
+            _flush[0].zero_()
         start.record()
         fn()
         end.record()
@@ -91,52 +109,108 @@ def main_path_maps(device) -> torch.Tensor:
     return heat.to(device)
 
 
-def large_maps(shape, device) -> torch.Tensor:
-    """Random joint maps of ``shape`` with one saturated channel, one empty
-    channel (every slot repeats cell (0, 0)) and -0/+0 ties."""
+def edge_maps(shape, device) -> torch.Tensor:
+    """Maps of ``shape`` whose channel c is case c % 8 of: noise; a
+    checkerboard of isolated maxima (n_raw >> P); noise with -0 and +0
+    ties; all zeros; a constant plateau of -0.1 (every cell kept and
+    negative when thre < -0.1); a constant plateau of -0.5 (nothing kept);
+    signed noise; a constant plateau of 0.25 (every cell kept)."""
     k, h, w = shape
     g = torch.Generator().manual_seed(SEED + h)
-    heat = torch.rand(shape, generator=g) * 0.6
+    noise = torch.rand(shape, generator=g)
     checker = (torch.arange(h)[:, None] + torch.arange(w)[None]) % 2 == 0
-    heat[3] = torch.where(checker, heat[3] + 0.5, torch.zeros(()))
-    heat[5] = 0.0
-    heat[7] = torch.where(heat[7] < 0.3, torch.tensor(-0.0), heat[7])
-    return heat.to(device)
+    case = torch.arange(k)[:, None, None] % 8
+    zero, nzero = torch.zeros(()), torch.tensor(-0.0)
+    heat = torch.where(case == 0, noise * 0.6, zero)
+    heat = torch.where(case == 1, torch.where(checker, noise * 0.5 + 0.5, zero), heat)
+    ties = torch.where(noise < 0.3, nzero, torch.where(noise < 0.5, zero, noise))
+    heat = torch.where(case == 2, ties, heat)
+    heat = torch.where(case == 4, torch.tensor(-0.1), heat)
+    heat = torch.where(case == 5, torch.tensor(-0.5), heat)
+    heat = torch.where(case == 6, noise - 0.5, heat)
+    heat = torch.where(case == 7, torch.tensor(0.25), heat)
+    return heat.contiguous().to(device)
 
 
-def check_fused_large(kernels, device):
-    """fused_peaks on maps beyond shared memory against its plain version,
-    exact; returns (max_abs_err, [(shape, ms, plain_ms)])."""
-    errs, times = [], []
-    for shape in LARGE_MAP_SHAPES:
-        heat = large_maps(shape, device)
-        assert shape[1] * shape[2] * 4 > kernels.FUSED_PEAKS_SMEM_BYTES
-        for fp in ("plus", "square"):
-            got = kernels.fused_peaks(heat, 0.1, 32, fp)
-            want = kernels.fused_peaks_plain(heat, 0.1, 32, fp)
-            torch.cuda.synchronize()
-            for name, a, b in zip(("scores", "yx", "n_raw", "patches"), got, want):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"fused_peaks{shape}[{fp}] {name} differs")
-            if not (int(got[2][3]) > 32 and int(got[2][5]) == 0):
-                raise AssertionError("saturated/empty channels misbehaved")
-            errs.append(max_abs_err(got, want))
-        ms = device_ms(lambda: kernels.fused_peaks(heat, 0.1, 32, "plus"))
-        plain_ms = device_ms(lambda: kernels.fused_peaks_plain(heat, 0.1, 32, "plus"))
-        times.append((shape, ms, plain_ms))
-        print(f"fused_peaks {shape} (global-scratch variant): exact; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMING_RUNS})",
-              flush=True)
-    return max(errs), times
+def unfused_route(kernels, peaks, heat, thre=0.1, max_peaks=32,
+                  footprint="plus", win=2):
+    """What ``fused_peaks`` stands in for on the unfused path
+    (ops/peaks.py find_peaks): the nms kernel, a stable descending sort of
+    each map, the top-P cut and the patch gather."""
+    k, h, w = heat.shape
+    flat = kernels.nms(heat, thre, footprint).reshape(k, h * w)
+    top, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    idx = idx[:, :max_peaks]
+    cy, cx = idx // w, idx % w
+    return top[:, :max_peaks], cy, cx, peaks._gather_patches(heat, cy, cx, win)
 
 
-def check_kernels(kernels, device):
-    """Each kernel against its plain version at the main-path shape; exact.
-    fused_peaks also on maps beyond shared memory."""
+def bound_ms(nbytes: int) -> float:
+    """Least time to move ``nbytes`` through device memory once."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_fused_edge_grid(kernels, device) -> float:
+    """fused_peaks on the edge-case grid at every EDGE_SHAPES shape,
+    exact against its plain version (torch.equal on all four outputs)."""
+    errs, n = [], 0
+    for shape in EDGE_SHAPES:
+        heat = edge_maps(shape, device)
+        for thre in EDGE_THRES:
+            for max_peaks in EDGE_PEAKS:
+                for fp, win in EDGE_FOOTPRINTS:
+                    got = kernels.fused_peaks(heat, thre, max_peaks, fp, win)
+                    want = kernels.fused_peaks_plain(heat, thre, max_peaks, fp, win)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip(("scores", "yx", "n_raw", "patches"),
+                                          got, want):
+                        if not torch.equal(a, b):
+                            raise AssertionError(
+                                f"fused_peaks{shape} thre={thre} P={max_peaks} "
+                                f"{fp} win={win}: {name} differs")
+                    errs.append(max_abs_err(got, want))
+                    n += 1
+    heat = edge_maps((8, 64, 64), device)
+    for max_peaks in (300, 5000):   # lists beyond 48 KB; P above h*w
+        got = kernels.fused_peaks(heat, 0.1, max_peaks, "plus")
+        want = kernels.fused_peaks_plain(heat, 0.1, max_peaks, "plus")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"fused_peaks P={max_peaks} differs")
+        errs.append(max_abs_err(got, want))
+        n += 1
+    print(f"fused_peaks edge grid: {n} cases exact (shapes {EDGE_SHAPES}, thre "
+          f"{EDGE_THRES}, P {EDGE_PEAKS}, (footprint, win) {EDGE_FOOTPRINTS}; "
+          "and P 300, 5000 at (8, 64, 64))",
+          flush=True)
+    return max(errs)
+
+
+def fused_times(kernels, peaks, heat) -> dict:
+    """fused_peaks at the main path's arguments on ``heat``: kernel (input
+    warm in L2, as behind the flip average, and cold), plain version,
+    the unfused route, and the bound."""
+    out = kernels.fused_peaks(heat, 0.1, 32, "plus")
+    nbytes = heat.nbytes + sum(t.nbytes for t in out)
+    row = dict(shape=list(heat.shape),
+               ms=device_ms(lambda: kernels.fused_peaks(heat, 0.1, 32, "plus")),
+               ms_cold=device_ms(lambda: kernels.fused_peaks(heat, 0.1, 32, "plus"),
+                                 cold=True),
+               plain_ms=device_ms(lambda: kernels.fused_peaks_plain(heat, 0.1, 32, "plus")),
+               unfused_ms=device_ms(lambda: unfused_route(kernels, peaks, heat)),
+               bound_ms=bound_ms(nbytes))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def check_kernels(kernels, peaks, device, smi):
+    """Each kernel against its plain version at the main-path shape, exact;
+    fused_peaks also on the edge-case grid at every EDGE_SHAPES shape. Then
+    each kernel's times beside its bound (device-memory bytes at 3.35 TB/s:
+    each input byte read once, each output byte written once)."""
     heat = main_path_maps(device)
     plateau = torch.zeros((1, 8, 8), device=device)
     plateau[0, 3, 3] = plateau[0, 3, 4] = 0.7
-    rows = []
     errs = []
     for fp in ("plus", "square"):
         for x in (heat, plateau):
@@ -146,12 +220,15 @@ def check_kernels(kernels, device):
             if not torch.equal(got, want):
                 raise AssertionError(f"nms[{fp}] differs from its plain version")
             errs.append(max_abs_err([got], [want]))
-    rows.append(dict(
+    nms_row = dict(
         name="nms", route="cuda", source="improved_body_parts_tpu_torch/csrc/nms.cu",
         replaces="improved_body_parts_tpu/ops/pallas_kernels.py:72",
-        max_abs_err=max(errs),
+        max_abs_err=max(errs), shape=list(heat.shape),
         ms=device_ms(lambda: kernels.nms(heat, 0.1, "plus")),
-        plain_ms=device_ms(lambda: kernels.nms_plain(heat, 0.1, "plus"))))
+        ms_cold=device_ms(lambda: kernels.nms(heat, 0.1, "plus"), cold=True),
+        plain_ms=device_ms(lambda: kernels.nms_plain(heat, 0.1, "plus")),
+        bound_ms=bound_ms(2 * heat.nbytes), bound_by="bytes", library_ms=None)
+    nms_row["share_of_bound"] = nms_row["bound_ms"] / nms_row["ms"]
 
     errs = []
     for fp in ("plus", "square"):
@@ -164,19 +241,24 @@ def check_kernels(kernels, device):
         if not int(got[2][3]) > 32:
             raise AssertionError("the saturated channel did not saturate")
         errs.append(max_abs_err(got, want))
-    large_err, _ = check_fused_large(kernels, device)
-    rows.append(dict(
+    errs.append(check_fused_edge_grid(kernels, device))
+    times = [fused_times(kernels, peaks, heat)]
+    times += [fused_times(kernels, peaks, edge_maps(shape, device))
+              for shape in EDGE_SHAPES[1:]]
+    fused_row = dict(
         name="fused_peaks", route="cuda",
         source="improved_body_parts_tpu_torch/csrc/fused_peaks.cu",
         replaces="improved_body_parts_tpu/ops/pallas_kernels.py:194",
-        max_abs_err=max(errs + [large_err]),
-        ms=device_ms(lambda: kernels.fused_peaks(heat, 0.1, 32, "plus")),
-        plain_ms=device_ms(lambda: kernels.fused_peaks_plain(heat, 0.1, 32, "plus"))))
-    for r in rows:
-        print(f"{r['name']}: exact (max_abs_err {r['max_abs_err']}); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              f"(median of {TIMING_RUNS}, (144, 128, 128) fp32)", flush=True)
-    return rows
+        max_abs_err=max(errs), **times[0], bound_by="bytes", library_ms=None,
+        at_other_shapes=times[1:])
+    for r in [nms_row] + times:
+        name = "nms" if r is nms_row else "fused_peaks"
+        extra = "" if r is nms_row else f", unfused route {r['unfused_ms']:.5f} ms"
+        print(f"{name} {tuple(r['shape'])}: kernel {r['ms']:.5f} ms warm in L2 / "
+              f"{r['ms_cold']:.5f} ms cold, bound {r['bound_ms']:.5f} ms (share "
+              f"{r['share_of_bound']:.3f}), plain {r['plain_ms']:.5f} ms{extra} "
+              f"(median of {TIMING_RUNS}, {smi})", flush=True)
+    return [nms_row, fused_row]
 
 
 @torch.no_grad()
@@ -224,8 +306,8 @@ def tta_maps_and_serving(model, model_cpu, config, frames, requests, device,
                          smi, net_ms):
     """fp32 single-image TTA maps on the card against the CPU; then bf16
     TTA serving through PipelinedServer, without and with rotation."""
-    from improved_body_parts_tpu.infer.serving import PipelinedServer
     from improved_body_parts_tpu_torch.infer.predict import Predictor
+    from improved_body_parts_tpu_torch.infer.serving import PipelinedServer
     from improved_body_parts_tpu_torch.ops import kernels
 
     angles = (0.0, 10.0)
@@ -324,18 +406,52 @@ def entry_points(model, config, device, smi):
           flush=True)
 
 
+def postprocess_times(posts, dev_args, smi) -> None:
+    """Post-processing of one batch, unfused against fused, in turns
+    (unfused, fused, fused, unfused): CUDA events around each call (the
+    card's wall time, host-bound gaps included) and the device time the
+    profiler attributes to its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_ms(fn, runs=5) -> float:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        # the kernels' own rows (an operator's row repeats its kernels' time),
+        # or the operators' rows where the kernels have none
+        rows = prof.key_averages()
+        total = (sum(e.self_device_time_total for e in rows
+                     if e.device_type == DeviceType.CUDA)
+                 or sum(e.self_device_time_total for e in rows))
+        return total / runs / 1e3
+
+    res = {False: [], True: []}
+    with torch.inference_mode():
+        for fused in (False, True, True, False):
+            fn = (lambda p=posts[fused]: p._postprocess(*dev_args))
+            res[fused].append((device_ms(fn), busy_ms(fn)))
+    for fused, runs in res.items():
+        print(f"post-processing of {BATCH}, fused={fused}: "
+              f"{' / '.join(f'{e:.3f}' for e, _ in runs)} ms between CUDA events "
+              f"(median of {TIMING_RUNS}, two turns); device busy "
+              f"{' / '.join(f'{b:.3f}' for _, b in runs)} ms by the profiler "
+              f"({smi})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
 
-    from improved_body_parts_tpu.configs import get_config
-    from improved_body_parts_tpu.data.synthetic import SyntheticDataset
-    from improved_body_parts_tpu.infer.serving import PipelinedServer
+    from improved_body_parts_tpu_torch.configs import get_config
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
     from improved_body_parts_tpu_torch.infer.predict import Predictor, unpack_results
+    from improved_body_parts_tpu_torch.infer.serving import PipelinedServer
     from improved_body_parts_tpu_torch.models.imhn import PoseNet
-    from improved_body_parts_tpu_torch.ops import build, kernels
+    from improved_body_parts_tpu_torch.ops import build, kernels, peaks
     from improved_body_parts_tpu_torch.utils.device import require_cuda
 
     # -- 0: the card ---------------------------------------------------------
@@ -354,12 +470,13 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({build.build_info['path']})", flush=True)
     for line in build.build_info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "smem" in line:
+        if any(t in line for t in ("registers", "Compiling entry", "spill")):
             print("  ptxas:", line.strip().removeprefix("ptxas info    : "))
 
     # -- 2: kernels against their plain versions -------------------------------
-    phase("2 kernels vs plain, (144, 128, 128) and fused_peaks beyond shared memory")
-    kernel_rows = check_kernels(kernels, device)
+    phase("2 kernels vs plain: (144, 128, 128); fused_peaks' edge grid at "
+          f"{EDGE_SHAPES}")
+    kernel_rows = check_kernels(kernels, peaks, device, smi)
 
     # -- 3: the model at full Canonical width -----------------------------------
     phase("3 model, Canonical width")
@@ -418,14 +535,18 @@ def main() -> int:
     chws[1] = [512.0, 384.0]
     host_args = [torch.from_numpy(a) for a in (gt_maps, hs, chws)]
     dev_args = [a.to(device) for a in host_args]
+    posts = {}
     for fused, counter in ((False, kernels.nms), (True, kernels.fused_peaks)):
         kernels.reset_launch_counts()
         p_dev = Predictor(model, config, device=device, fused_peaks=fused)
         p_cpu = Predictor(model_cpu, config, device=CPU, fused_peaks=fused)
+        posts[fused] = p_dev
         with torch.inference_mode():
             got = p_dev._postprocess(*dev_args)[0].cpu().numpy()
             want = p_cpu._postprocess(*host_args)[0].numpy()
-            post_ms = device_ms(lambda: p_dev._postprocess(*dev_args), runs=5)
+        launches_per_batch = counter.launches
+        kernel_rows[0 if counter is kernels.nms else 1][
+            "launches_per_batch"] = launches_per_batch
         worst = compare_tables(got, want, P, unpack_results)
         people = 0
         for b in range(BATCH):
@@ -438,12 +559,12 @@ def main() -> int:
             raise AssertionError(f"{counter.__name__} was not launched")
         print(f"fused={fused}: tables equal to the CPU run (floats within "
               f"{worst:.2e}); {people} people in 8 scenes; "
-              f"{counter.__name__} launches {counter.launches}; "
-              f"post-processing {post_ms:.2f} ms per batch of {BATCH}",
+              f"{counter.__name__} launches per batch {launches_per_batch}",
               flush=True)
+    postprocess_times(posts, dev_args, smi)
 
     # a 1088x1920 photo through predict_skeletons with the fused kernel: its
-    # 272x480 stride maps exceed one block's shared memory
+    # 272x480 stride maps split each channel over a cluster of blocks
     photo = np.full((1088, 1920, 3), 128, np.uint8)
     for i in range(BATCH):
         r, c = divmod(i, 4)

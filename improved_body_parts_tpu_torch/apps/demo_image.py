@@ -4,8 +4,11 @@
 device, host person assembly, skeleton rendering.
 
     python -m improved_body_parts_tpu_torch.apps.demo_image --image in.jpg \
-        --checkpoint weights.pth --output out.jpg [--device cuda]
+        --checkpoint weights.pth --output out.jpg [--device cpu]
     python -m improved_body_parts_tpu_torch.apps.demo_image --synthetic
+
+It runs on the card unless ``--device cpu`` is given, and raises when no card
+is visible and no ``--device`` was named.
 
 ``--synthetic`` runs the post-processing on a two-person ground-truth
 scene (no network, no weights) and exits 0 when it finds both people.
@@ -24,10 +27,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from improved_body_parts_tpu.configs import (
+from improved_body_parts_tpu_torch.configs import (
     LIMBS_CONN, NUM_PARTS, PAF_LAYERS, CanonicalConfig, get_config,
 )
-from improved_body_parts_tpu.ops import group
+from improved_body_parts_tpu_torch.ops import group, group_cpp
 from improved_body_parts_tpu_torch.infer.predict import Predictor
 from improved_body_parts_tpu_torch.models.imhn import PoseNet
 from improved_body_parts_tpu_torch.ops.limbs import (
@@ -35,15 +38,20 @@ from improved_body_parts_tpu_torch.ops.limbs import (
 )
 from improved_body_parts_tpu_torch.ops.peaks import PeakTable, find_peaks
 from improved_body_parts_tpu_torch.utils.checkpoint import load_reference_pth
+from improved_body_parts_tpu_torch.utils.common import (
+    draw_humans, draw_humans_ellipse, show_color_vector,
+)
+from improved_body_parts_tpu_torch.utils.device import require_cuda
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def default_device(name: Optional[str]) -> torch.device:
-    """``name``, or the card when there is one and the CPU otherwise."""
+    """``name`` when given (``"cpu"`` is the only way to the CPU), else the
+    card; raises when no card is visible and none was named."""
     if name:
         return torch.device(name)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return require_cuda()
 
 
 def build_predictor(checkpoint: str, config: Union[str, CanonicalConfig],
@@ -143,7 +151,6 @@ def run_synthetic(config: Union[str, CanonicalConfig] = "Canonical", *,
                                          pk.score.cpu().numpy(),
                                          pk.valid.cpu().numpy())
     if use_cpp:
-        from improved_body_parts_tpu.ops import group_cpp
         table, cands = group_cpp.find_humans(connected, cands, icfg)
     else:
         table, cands = group.find_humans(connected, cands, icfg)
@@ -176,7 +183,8 @@ def main(argv=None) -> int:
     parser.add_argument("--show-maps", action="store_true",
                         help="also save heatmap/limb-map overlay diagnostics")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda when present, else cpu)")
+                        help="torch device (default: cuda, and an error when "
+                             "no card is visible; pass cpu to run on the CPU)")
     parser.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
                         help="type the network's convs run in")
     args = parser.parse_args(argv)
@@ -190,7 +198,6 @@ def main(argv=None) -> int:
         print(f"synthetic scene: found {len(kps)} people "
               f"(scores: {np.round(scores, 3).tolist()}) in {time.time()-t0:.2f}s")
         import cv2
-        from improved_body_parts_tpu.utils.common import draw_humans
         cv2.imwrite(args.output, draw_humans(np.zeros((256, 256, 3), np.uint8), kps))
         print(f"wrote {args.output}")
         return 0 if len(kps) == 2 else 1
@@ -213,8 +220,6 @@ def main(argv=None) -> int:
         angles=tuple(args.rotation_search))
     print(f"found {len(kps)} people in {time.time() - t0:.3f}s")
 
-    from improved_body_parts_tpu.utils.common import (
-        draw_humans, draw_humans_ellipse, show_color_vector)
     canvas = (draw_humans_ellipse(img, kps) if args.ellipse
               else draw_humans(img, kps))
     cv2.imwrite(args.output, canvas)

@@ -3,12 +3,14 @@
 
     python -m improved_body_parts_tpu_torch.apps.evaluate \
         --checkpoint weights.pth --image-dir DIR --gt-json gt.json \
-        [--scale-search 0.5 1 1.5 2] [--letterbox --pipeline 4] [--device cuda]
+        [--scale-search 0.5 1 1.5 2] [--letterbox --pipeline 4] [--device cpu]
+
+It runs on the card unless ``--device cpu`` is given (``default_device``).
 
 The evaluation itself is ``evaluate_frames``, over frames already in
 memory; ``main`` reads the images (cv2), writes
 ``<results-dir>/<subset>_<dump-name>_results.json`` and scores it: with the
-shared jax-free ``utils/oks_eval`` for ``--gt-json``, and for a COCO
+port's ``utils/oks_eval`` for ``--gt-json``, and for a COCO
 directory with pycocotools where it is installed. ``synthetic_coco`` makes
 frames and their COCO-format ground truth in memory (the scenes of
 ``tools/make_synthetic_coco.py``), without cv2.
@@ -25,10 +27,13 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from improved_body_parts_tpu.configs import ORDER_COCO
 from improved_body_parts_tpu_torch.apps.demo_image import (
     DTYPES, build_predictor, default_device,
 )
+from improved_body_parts_tpu_torch.configs import ORDER_COCO
+from improved_body_parts_tpu_torch.data.synthetic import random_people, render_image
+from improved_body_parts_tpu_torch.infer.serving import PipelinedServer
+from improved_body_parts_tpu_torch.utils.oks_eval import KeypointEval
 
 NUM_COCO_KEYPOINTS = 17
 COCO_KEYPOINT_NAMES = [
@@ -92,7 +97,6 @@ def evaluate_frames(predictor, frames: Sequence[Tuple[int, np.ndarray]], *,
     if pipeline:
         if not letterbox:
             raise ValueError("--pipeline requires --letterbox")
-        from improved_body_parts_tpu.infer.serving import PipelinedServer
         # letterboxed content height ~= boxsize, so the reference's
         # per-image multiplier (scale * boxsize / img_h) is the scale itself
         scales = tuple(scale_search) if scale_search else None
@@ -136,8 +140,7 @@ def evaluate_frames(predictor, frames: Sequence[Tuple[int, np.ndarray]], *,
 def score(gt_data: Dict, outputs: List[Dict], image_ids: List[int],
           print_fn=print) -> np.ndarray:
     """OKS keypoint AP of ``outputs`` against COCO-format ``gt_data`` with
-    the shared evaluator (``utils/oks_eval``); returns its 10 stats."""
-    from improved_body_parts_tpu.utils.oks_eval import KeypointEval
+    the port's evaluator (``utils/oks_eval``); returns its 10 stats."""
     return KeypointEval(gt_data, outputs, img_ids=list(image_ids)).run(
         print_fn=print_fn)
 
@@ -160,7 +163,6 @@ def synthetic_coco(n_images: int, size: int = 512, seed: int = 777,
     """``n_images`` rendered multi-person scenes (``data.synthetic``) as
     [(image_id, BGR uint8 frame)] and their COCO-format ground truth, the
     set ``tools/make_synthetic_coco.py`` writes to disk."""
-    from improved_body_parts_tpu.data.synthetic import random_people, render_image
     frames, images, annotations = [], [], []
     for i in range(n_images):
         rng = np.random.RandomState(seed * 100003 + i)
@@ -264,7 +266,8 @@ def main(argv=None) -> int:
     parser.add_argument("--quantize", default="", choices=["", "int8"],
                         help="int8 forward (not ported: raises)")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda when present, else cpu)")
+                        help="torch device (default: cuda, and an error when "
+                             "no card is visible; pass cpu to run on the CPU)")
     parser.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
                         help="type the network's convs run in")
     args = parser.parse_args(argv)

@@ -6,9 +6,8 @@ one batch through the model, the flip pair is averaged with the channel
 permutation, peaks and limbs are found on the stride-4 maps, and everything
 the host needs comes back as ONE packed float32 buffer per image (same
 layout as the JAX package's), which the host groups into people with the
-shared ``ops.group`` / ``ops.group_cpp``.
-``improved_body_parts_tpu.infer.serving.PipelinedServer`` drives this
-``Predictor`` unchanged.
+port's ``ops.group`` / ``ops.group_cpp``. ``infer.serving.PipelinedServer``
+drives this ``Predictor``.
 
 Multi-scale and rotation TTA (``scales``/``angles``) follow the JAX
 package's device programs (``_device_fn_tta``/``_device_fn_batch_tta``):
@@ -27,11 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from improved_body_parts_tpu.configs import (
+from improved_body_parts_tpu_torch.configs import (
     CanonicalConfig, FLIP_CHANNEL_ORD, NUM_LAYERS, NUM_LIMBS, NUM_PARTS,
     PAF_LAYERS,
 )
-from improved_body_parts_tpu.ops import group
+from improved_body_parts_tpu_torch.ops import group, group_cpp
 from improved_body_parts_tpu_torch.ops.limbs import (
     Connections, connections_to_list, score_connections, select_connections,
 )
@@ -282,7 +281,6 @@ class Predictor:
             peaks_np.xy, peaks_np.score, peaks_np.valid)
         if use_cpp is None or use_cpp:
             # numpy only when the C++ library is UNAVAILABLE (no compiler)
-            from improved_body_parts_tpu.ops import group_cpp
             if group_cpp.is_available():
                 return group_cpp.find_humans(connected, cands, self.config.infer)
             if use_cpp:

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from improved_body_parts_tpu.configs import ModelConfig
+from improved_body_parts_tpu_torch.configs import ModelConfig
 
 LEAKY_SLOPE = 0.01
 BN_EPS = 1e-5

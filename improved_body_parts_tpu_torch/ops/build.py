@@ -31,11 +31,12 @@ _ARGTYPES = {
     # heat, out, n, h, w, thre, plus, stream
     "ibp_nms": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, _P],
-    # heat, scratch, scores, yx, n_raw, patches, k, h, w, max_peaks, win,
-    # thre, plus, stream
-    "ibp_fused_peaks": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # heat, scores, yx, n_raw, patches, k, h, w, max_peaks, win, thre,
+    # plus, stream
+    "ibp_fused_peaks": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_float, ctypes.c_int, _P],
+    "ibp_fused_peaks_max_list_keys": [],
 }
 
 _lock = threading.Lock()

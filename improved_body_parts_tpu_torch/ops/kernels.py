@@ -6,11 +6,12 @@ launch counts.
   * ``fused_peaks`` (csrc/fused_peaks.cu) replaces
     ``pallas_kernels.py:fused_peaks_pallas``.
 
-Both are bound by device-memory bytes (each map is read once; the fused
-kernel keeps its NMS map in shared memory for its P arg-max rounds, or, for
-a map beyond one block's shared memory, in a global scratch that stays in
-L2), so each is one launch; the notes at the top of each source say more. Both are pure compares, copies and integer arithmetic,
-so a kernel and its plain version agree bit for bit.
+Both are bound by device-memory bytes: each map is read once, and each
+kernel is one launch. The fused kernel streams each channel once and keeps
+no NMS map in memory, only sorted top-P key lists (registers and shared
+memory); the notes at the top of each source say more. Both are pure
+compares, copies and integer arithmetic, so a kernel and its plain version
+agree bit for bit.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (on PyTorch's current stream, no
@@ -30,9 +31,6 @@ from improved_body_parts_tpu_torch.ops import build
 _PLUS_OFFSETS = ((0, 1), (2, 1), (1, 0), (1, 2))
 _SQUARE_OFFSETS = tuple((dy, dx) for dy in range(3) for dx in range(3)
                         if not (dy == 1 and dx == 1))
-# dynamic shared memory one block of the fused kernel may hold (H100: 227 KB
-# per block, less the kernel's 384 bytes of static shared memory)
-FUSED_PEAKS_SMEM_BYTES = 232448 - 1024
 
 _count_lock = threading.Lock()
 
@@ -153,9 +151,9 @@ def fused_peaks_plain(heat: torch.Tensor, thre: float = 0.1,
 def fused_peaks(heat: torch.Tensor, thre: float = 0.1, max_peaks: int = 32,
                 footprint: str = "plus", win: int = 2):
     """``fused_peaks_plain`` on the CPU; the CUDA kernel
-    (csrc/fused_peaks.cu) on the card. A map larger than one block's shared
-    memory takes the kernel's variant that keeps its NMS map in a global
-    scratch (same results, bit for bit)."""
+    (csrc/fused_peaks.cu) on the card, one code path for every map size.
+    Raises where ``min(max_peaks, H*W)`` keys exceed the kernel's top-P
+    lists (25,600 keys in shared memory)."""
     if heat.device.type == "cpu":
         return fused_peaks_plain(heat, thre, max_peaks, footprint, win)
     plus = _check_footprint(footprint)
@@ -164,21 +162,19 @@ def fused_peaks(heat: torch.Tensor, thre: float = 0.1, max_peaks: int = 32,
     size = 2 * win + 1
     if size * size > 1024 or max_peaks < 1:
         raise ValueError(f"unsupported win={win} / max_peaks={max_peaks}")
+    lib = build.load()
+    if min(max_peaks, h * w) > lib.ibp_fused_peaks_max_list_keys():
+        raise ValueError(f"max_peaks={max_peaks} on {h}x{w} maps exceeds the "
+                         "kernel's top-P lists")
     dev = heat.device
     scores = torch.empty((k, max_peaks), dtype=torch.float32, device=dev)
     yx = torch.empty((k, max_peaks, 2), dtype=torch.int32, device=dev)
     n_raw = torch.empty((k,), dtype=torch.int32, device=dev)
     patches = torch.empty((k, max_peaks, size, size), dtype=torch.float32,
                           device=dev)
-    # the NMS map of a map beyond shared memory; freed on return, which is
-    # safe: the caching allocator reuses it only for later work on this stream
-    scratch = (torch.empty_like(heat) if h * w * 4 > FUSED_PEAKS_SMEM_BYTES
-               else None)
-    lib = build.load()
     with torch.cuda.device(dev):
         err = lib.ibp_fused_peaks(
-            heat.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            scores.data_ptr(), yx.data_ptr(),
+            heat.data_ptr(), scores.data_ptr(), yx.data_ptr(),
             n_raw.data_ptr(), patches.data_ptr(), k, h, w, max_peaks, win,
             float(thre), int(plus), torch.cuda.current_stream().cuda_stream)
     if err:

@@ -21,7 +21,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from improved_body_parts_tpu.configs import LIMBS_CONN
+from improved_body_parts_tpu_torch.configs import LIMBS_CONN
 from improved_body_parts_tpu_torch.ops.peaks import CV2_CUBIC_A, PeakTable
 
 

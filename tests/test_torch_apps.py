@@ -21,11 +21,12 @@ import torch
 
 import demo_image as jdemo
 import evaluate as jevaluate
-from improved_body_parts_tpu import configs
+from improved_body_parts_tpu import configs as jconfigs
 from improved_body_parts_tpu.infer import predict as jpredict
 from improved_body_parts_tpu.models.imhn import create_model
 from improved_body_parts_tpu.utils.checkpoint import convert_torch_state_dict
 from improved_body_parts_tpu.utils.oks_eval import KeypointEval
+from improved_body_parts_tpu_torch import configs as tconfigs
 from improved_body_parts_tpu_torch.apps import demo_image as tdemo
 from improved_body_parts_tpu_torch.apps import evaluate as tevaluate
 from improved_body_parts_tpu_torch.models.imhn import PoseNet
@@ -54,10 +55,11 @@ def tiny(tmp_path_factory):
     torch.save({"weights": {"module." + k: v for k, v in sd.items()},
                 "epoch": 0}, path)
     params, stats = convert_torch_state_dict(sd)
-    jpred = jpredict.Predictor(create_model(config.model, dtype=jnp.float32),
-                               {"params": params, "batch_stats": stats}, config)
+    jconfig = _config(jconfigs)
+    jpred = jpredict.Predictor(create_model(jconfig.model, dtype=jnp.float32),
+                               {"params": params, "batch_stats": stats}, jconfig)
     mp = pytest.MonkeyPatch()
-    mp.setitem(configs.CONFIGS, CONFIG_NAME, config)
+    mp.setitem(tconfigs.CONFIGS, CONFIG_NAME, config)
     yield path, jpred
     mp.undo()
 
@@ -210,6 +212,27 @@ def test_build_predictor_loads_pth_and_refuses_the_rest(tiny, tmp_path):
         tdemo.build_predictor(str(tmp_path), CONFIG_NAME, device=CPU)
     with pytest.raises(NotImplementedError):
         tdemo.build_predictor(path, CONFIG_NAME, device=CPU, quantize="int8")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without a card the apps raise unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        tdemo.default_device(None)
+    assert tdemo.default_device("cpu") == CPU
+    assert tevaluate.default_device is tdemo.default_device
+
+
+@pytest.mark.parametrize("app", ["evaluate", "demo_image"])
+def test_apps_without_a_card_or_device_raise(monkeypatch, coco, tmp_path, app):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, _, img_dir, gt_json = coco
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        if app == "evaluate":
+            tevaluate.main(["--image-dir", img_dir, "--gt-json", gt_json,
+                            "--results-dir", str(tmp_path)])
+        else:
+            tdemo.main(["--synthetic", "--output", str(tmp_path / "out.jpg")])
 
 
 @pytest.mark.parametrize("app", ["evaluate", "demo_image"])

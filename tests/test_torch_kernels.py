@@ -124,6 +124,128 @@ def test_fused_peaks_plain_matches_pallas(pallas, case, footprint):
         assert (got[0][2, 2:] == 0).all() and (got[0][3] == 0).all()
 
 
+# ---------------------------------------------------------------------------
+# the one-pass selection rule of csrc/fused_peaks.cu
+# ---------------------------------------------------------------------------
+
+THRES = (0.1, 0.0, -0.2)
+PEAK_COUNTS = (1, 8, 33)
+
+
+def _edge_maps(k: int, h: int, w: int, seed: int) -> np.ndarray:
+    """(k, h, w): channel c is case c % 8 of: noise; a checkerboard of
+    isolated maxima (n_raw >> P); noise with -0 and +0 ties; all zeros; a
+    constant negative plateau above -0.2 (every cell kept, all negative,
+    when thre < -0.1); a constant plateau below -0.2 (nothing kept);
+    signed noise; a constant positive plateau (every cell kept)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    heat = np.zeros((k, h, w), np.float32)
+    for c in range(k):
+        case = c % 8
+        noise = rng.rand(h, w).astype(np.float32)
+        if case == 0:
+            heat[c] = noise * 0.6
+        elif case == 1:
+            heat[c] = np.where((yy + xx) % 2 == 0, noise * 0.5 + 0.5, 0.0)
+        elif case == 2:
+            heat[c] = np.where(noise < 0.3, np.float32(-0.0),
+                               np.where(noise < 0.5, np.float32(0.0), noise))
+        elif case == 4:
+            heat[c] = -0.1
+        elif case == 5:
+            heat[c] = -0.5
+        elif case == 6:
+            heat[c] = noise - 0.5
+        elif case == 7:
+            heat[c] = 0.25
+    return heat
+
+
+def _one_pass_rule(heat: np.ndarray, thre: float, max_peaks: int,
+                   footprint: str, win: int):
+    """numpy model of the rule the CUDA kernel applies after one pass:
+    the kept cells with value > 0 in (value desc, index asc) order; if
+    fewer than P, every further slot is Z = the lowest index whose NMS value
+    is 0 once those picks are zeroed, with score 0; if there is no such
+    cell (every cell kept and negative), the best negative cell with its
+    value, then that cell with score 0. Patches from the input map, zeros
+    outside it."""
+    k, h, w = heat.shape
+    padded = np.pad(heat, ((0, 0), (1, 1), (1, 1)), constant_values=-np.inf)
+    offsets = ((0, 1), (2, 1), (1, 0), (1, 2)) if footprint == "plus" else \
+        tuple((dy, dx) for dy in range(3) for dx in range(3) if (dy, dx) != (1, 1))
+    hmax = heat.copy()
+    for dy, dx in offsets:
+        hmax = np.maximum(hmax, padded[:, dy:dy + h, dx:dx + w])
+    above = heat > thre if footprint == "plus" else heat >= thre
+    keep = (heat >= hmax) & above
+    size = 2 * win + 1
+    scores = np.zeros((k, max_peaks), np.float32)
+    idx = np.zeros((k, max_peaks), np.int64)
+    for c in range(k):
+        v, kept = heat[c].ravel(), keep[c].ravel()
+        pos = np.flatnonzero(kept & (v > 0))
+        picks = pos[np.lexsort((pos, -v[pos]))][:max_peaks]
+        n = len(picks)
+        idx[c, :n], scores[c, :n] = picks, v[picks]
+        if n == max_peaks:
+            continue
+        zeros = np.flatnonzero(~kept | (v == 0))
+        if zeros.size or n:
+            idx[c, n:] = min(list(zeros[:1]) + list(picks))
+        else:
+            neg = np.flatnonzero(kept & (v < 0))
+            best = neg[np.lexsort((neg, -v[neg]))][0]
+            idx[c, n:] = best
+            scores[c, n] = v[best]
+    cy, cx = idx // w, idx % w
+    pad = np.pad(heat, ((0, 0), (win, win), (win, win)))
+    taps = np.arange(size)
+    patches = pad[np.arange(k)[:, None, None, None],
+                  cy[:, :, None, None] + taps[:, None],
+                  cx[:, :, None, None] + taps[None, :]]
+    yx = np.stack([cy, cx], -1).astype(np.int32)
+    return scores, yx, keep.reshape(k, -1).sum(1).astype(np.int32), patches
+
+
+def _assert_outputs_equal(got, want):
+    for name, g, wnt in zip(("scores", "yx", "n_raw", "patches"), got, want):
+        assert g.shape == wnt.shape and g.dtype == wnt.dtype, name
+        np.testing.assert_array_equal(g, wnt, err_msg=name)
+
+
+@pytest.mark.parametrize("win", (1, 2))
+@pytest.mark.parametrize("footprint", FOOTPRINTS)
+@pytest.mark.parametrize("max_peaks", PEAK_COUNTS)
+@pytest.mark.parametrize("thre", THRES)
+def test_one_pass_rule_matches_plain(thre, max_peaks, footprint, win):
+    """The rule equals P rounds of arg-max, invalid slots included."""
+    heat = _edge_maps(16, 12, 10, seed=max_peaks)
+    want = [a.numpy() for a in kernels.fused_peaks_plain(
+        torch.from_numpy(heat), thre, max_peaks, footprint, win)]
+    _assert_outputs_equal(_one_pass_rule(heat, thre, max_peaks, footprint, win),
+                          want)
+    if thre < -0.1:      # the all-negative plateau took the negative branch
+        assert want[0][4, 0] == np.float32(-0.1) and want[2][4] == 120
+        assert (want[0][4, 1:] == 0).all() and (want[1][4] == want[1][4, 0]).all()
+    if footprint == "plus":                # the checkerboard saturates
+        assert want[2][1] > max_peaks
+
+
+@pytest.mark.parametrize("footprint,win", (("plus", 2), ("square", 1)))
+@pytest.mark.parametrize("max_peaks", PEAK_COUNTS)
+@pytest.mark.parametrize("thre", THRES)
+def test_one_pass_rule_matches_pallas(pallas, thre, max_peaks, footprint, win):
+    import jax.numpy as jnp
+    heat = _edge_maps(8, 12, 10, seed=max_peaks)
+    want = [np.asarray(a) for a in pallas.fused_peaks_pallas(
+        jnp.asarray(heat), thre, max_peaks=max_peaks, footprint=footprint,
+        win=win, interpret=True)]
+    _assert_outputs_equal(_one_pass_rule(heat, thre, max_peaks, footprint, win),
+                          want)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     heat = torch.from_numpy(_fused_case("random"))
     before = (kernels.nms.launches, kernels.fused_peaks.launches)
@@ -188,8 +310,8 @@ def _large_maps(device) -> torch.Tensor:
 
 @pytest.mark.parametrize("footprint", FOOTPRINTS)
 def test_fused_peaks_cuda_matches_plain_beyond_shared_memory(cuda, footprint):
+    """A channel split over a cluster of blocks (272x480 at k=18)."""
     heat = _large_maps(cuda)
-    assert heat.shape[1] * heat.shape[2] * 4 > kernels.FUSED_PEAKS_SMEM_BYTES
     n0 = kernels.fused_peaks.launches
     got = kernels.fused_peaks(heat, 0.1, 32, footprint)
     torch.cuda.synchronize()
@@ -200,3 +322,29 @@ def test_fused_peaks_cuda_matches_plain_beyond_shared_memory(cuda, footprint):
     assert got[2][3] > 32 and got[2][5] == 0
     assert (got[1][5] == 0).all()
 
+
+@pytest.mark.parametrize("footprint,win", (("plus", 2), ("square", 1)))
+@pytest.mark.parametrize("max_peaks", PEAK_COUNTS)
+@pytest.mark.parametrize("thre", THRES)
+@pytest.mark.parametrize("shape", ((144, 128, 128), (18, 272, 480)))
+def test_fused_peaks_cuda_edge_grid(cuda, shape, thre, max_peaks, footprint, win):
+    """The edge-case channels at the main-path shapes (one block a channel,
+    and a channel split over a cluster), exact against the plain version."""
+    heat = torch.from_numpy(_edge_maps(*shape, seed=max_peaks)).to(cuda)
+    got = kernels.fused_peaks(heat, thre, max_peaks, footprint, win)
+    want = kernels.fused_peaks_plain(heat, thre, max_peaks, footprint, win)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("scores", "yx", "n_raw", "patches"), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("max_peaks", (300, 5000))
+def test_fused_peaks_cuda_long_lists(cuda, max_peaks):
+    """Lists beyond 48 KB of shared memory (P = 300: 10 rows a warp), and
+    P above the map's cell count (fewer warps, so the lists still fit)."""
+    heat = torch.from_numpy(_edge_maps(8, 64, 64, seed=3)).to(cuda)
+    got = kernels.fused_peaks(heat, 0.1, max_peaks, "plus", 2)
+    want = kernels.fused_peaks_plain(heat, 0.1, max_peaks, "plus", 2)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("scores", "yx", "n_raw", "patches"), got, want):
+        assert torch.equal(a, b), name

@@ -6,6 +6,7 @@ JAX package's own torch parity test uses (test_torch_parity.py); 5e-5 against
 the golden is the JAX package's own golden bound (test_reference_parity.py).
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -23,6 +24,7 @@ from improved_body_parts_tpu.models.imhn import create_model
 from improved_body_parts_tpu.utils.checkpoint import (
     convert_torch_state_dict, export_to_torch_state_dict, map_reference_key,
 )
+from improved_body_parts_tpu_torch import configs as tconfigs
 from improved_body_parts_tpu_torch.models.imhn import PoseNet
 from improved_body_parts_tpu_torch.utils.checkpoint import (
     flax_to_reference_key, load_reference_pth, state_dict_from_flax,
@@ -32,6 +34,11 @@ from torch_mirror import TPoseNet
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 TINY = ModelConfig(nstack=2, inp_dim=32, increase=16, se_reduction=8)
+
+
+def _port(cfg: ModelConfig) -> tconfigs.ModelConfig:
+    """The same model config, as the port's ``configs`` class."""
+    return tconfigs.ModelConfig(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +60,7 @@ def tiny_pair():
 
     variables = jax.tree_util.tree_map_with_path(randomise, variables)
     params, stats = variables["params"], variables["batch_stats"]
-    port = PoseNet(TINY, compute_dtype=torch.float32)
+    port = PoseNet(_port(TINY), compute_dtype=torch.float32)
     port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
     port.eval()
     return fmodel, params, stats, port
@@ -81,7 +88,7 @@ def test_loads_mirror_and_export_strict(tiny_pair):
     mirror = TPoseNet(nstack=2, inp_dim=32, oup_dim=50, increase=16,
                       reduction=8)
     assert list(port.state_dict()) == list(mirror.state_dict())
-    fresh = PoseNet(TINY, compute_dtype=torch.float32)
+    fresh = PoseNet(_port(TINY), compute_dtype=torch.float32)
     fresh.load_state_dict(mirror.state_dict(), strict=True)
     # the JAX exporter's output (reference format) loads strictly too, and
     # carries the same weights as state_dict_from_flax
@@ -111,7 +118,7 @@ def test_key_mapping_inverts_jax_mapping(cfg):
             key = flax_to_reference_key(names[:-1], names[-1])
             assert map_reference_key(key) == (names[:-1], flax_leaf[names[-1]]), key
             keys.add(key)
-    port_keys = {k for k in PoseNet(cfg, device="meta").state_dict()
+    port_keys = {k for k in PoseNet(_port(cfg), device="meta").state_dict()
                  if not k.endswith("num_batches_tracked")}
     assert keys == port_keys
 
@@ -128,7 +135,7 @@ def test_matches_reference_golden(tmp_path):
                for k in keys}
     path = tmp_path / "ref.pth"
     torch.save({"weights": weights, "epoch": 0}, path)
-    model = PoseNet(ModelConfig(nstack=2), compute_dtype=torch.float32)
+    model = PoseNet(tconfigs.ModelConfig(nstack=2), compute_dtype=torch.float32)
     model.load_state_dict(load_reference_pth(str(path)), strict=True)
     model.eval()
     with torch.no_grad():
@@ -156,8 +163,9 @@ def test_flax_and_jax_converter_agree():
 
 
 def test_unported_variants_raise():
-    for cfg in (ModelConfig(legacy_blocks=True), ModelConfig(extra_attention=True)):
+    for cfg in (tconfigs.ModelConfig(legacy_blocks=True),
+                tconfigs.ModelConfig(extra_attention=True)):
         with pytest.raises(NotImplementedError):
             PoseNet(cfg, device="meta")
     with pytest.raises(NotImplementedError):
-        PoseNet(TINY, device="meta", quant="int8")
+        PoseNet(_port(TINY), device="meta", quant="int8")

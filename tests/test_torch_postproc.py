@@ -275,7 +275,7 @@ def test_unported_options_raise():
     variants and int8 (ROADMAP A10, A12)."""
     import dataclasses
 
-    from improved_body_parts_tpu.configs import ModelConfig
+    from improved_body_parts_tpu_torch.configs import ModelConfig
     from improved_body_parts_tpu_torch.models.imhn import PoseNet
     tiny = ModelConfig(nstack=1, inp_dim=16, increase=8, se_reduction=4)
     for kw in (dict(legacy_blocks=True), dict(extra_attention=True),

@@ -15,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from improved_body_parts_tpu.configs import CanonicalConfig, ModelConfig
+from improved_body_parts_tpu import configs as jconfigs
+from improved_body_parts_tpu.configs import CanonicalConfig
 from improved_body_parts_tpu.data.synthetic import SyntheticDataset
 from improved_body_parts_tpu.infer import predict as jpredict
-from improved_body_parts_tpu.infer.serving import PipelinedServer
 from improved_body_parts_tpu.models.imhn import create_model
 from improved_body_parts_tpu.utils.checkpoint import convert_torch_state_dict
 from improved_body_parts_tpu_torch.infer import predict as tpredict
+from improved_body_parts_tpu_torch import configs as tconfigs
+from improved_body_parts_tpu_torch.infer.serving import PipelinedServer
 from improved_body_parts_tpu_torch.models.imhn import PoseNet
 
 ATOL = 1e-4
@@ -29,10 +31,12 @@ SIZE = 128
 CPU = torch.device("cpu")
 
 
-def _config():
-    cfg = CanonicalConfig(width=SIZE, height=SIZE,
-                          model=ModelConfig(nstack=2, inp_dim=32, increase=16,
-                                            se_reduction=8))
+def _config(cfgs=tconfigs):
+    """The tiny config, built from the port's ``configs`` (or, for the JAX
+    side, from ``jconfigs``)."""
+    cfg = cfgs.CanonicalConfig(width=SIZE, height=SIZE,
+                               model=cfgs.ModelConfig(nstack=2, inp_dim=32,
+                                                      increase=16, se_reduction=8))
     return dataclasses.replace(cfg, infer=dataclasses.replace(
         cfg.infer, boxsize=SIZE, thre1=0.05, thre2=0.05,
         min_person_score=0.0, min_person_parts=1))
@@ -53,9 +57,10 @@ def pair():
                 m.running_var.uniform_(0.5, 2.0, generator=g)
     port_model.eval()
     params, stats = convert_torch_state_dict(port_model.state_dict())
-    jmodel = create_model(config.model, dtype=jnp.float32)
+    jconfig = _config(jconfigs)
+    jmodel = create_model(jconfig.model, dtype=jnp.float32)
     jpred = jpredict.Predictor(jmodel, {"params": params, "batch_stats": stats},
-                               config)
+                               jconfig)
     return jpred, tpredict.Predictor(port_model, config, device=CPU)
 
 
@@ -134,7 +139,7 @@ def test_postprocess_on_gt_maps_matches_jax(pair, fused):
 
 
 def test_pipelined_server_drives_port(pair):
-    """PipelinedServer, unchanged, over the port's Predictor gives what the
+    """The port's PipelinedServer over the port's Predictor gives what the
     port's own predict_batch gives for each letterboxed frame."""
     _, tpred = pair
     frames = _frames(5, seed=2)
