@@ -7,7 +7,15 @@ model, the
 post-processing on GT-rendered scenes, the batched flip-TTA serving path
 behind ``PipelinedServer``, multi-scale and rotation TTA (single image, fp32
 against the CPU; served, bf16), and the port's evaluator and demo entry
-points on in-memory synthetic frames (the card's machine has no cv2).
+points on in-memory synthetic frames (the card's machine has no cv2); then
+trains: train steps of the full-width model at 512², batch 8, with the
+dense and the compact-u8 feed through the trainer's loader and staging
+(step time, images/s, peak memory, the profiler's busy share and top
+operations), one step with remat, a step of the tiny model on the card
+against the CPU (fp32 with frozen BN, float64 in train mode), the
+abnormal-loss rollback, checkpoint resume, a trained
+checkpoint served through ``apps.evaluate.build_predictor``, and a falling
+loss.
 
     python3 chip_smoke.py
 
@@ -40,6 +48,11 @@ TTA_SCALES = (0.5, 1.0, 1.5, 2.0)   # the reference INI's scale_search
 TTA_DEPTH = 2
 TTA_REQUESTS = 32
 N_EVAL = 16
+TRAIN_BATCH = 8      # the README's JAX training row: batch 8, 512²
+TRAIN_WARM = 2
+TRAIN_TIMED = 6
+TRAIN_PROFILED = 3
+LEARN_LR = 1e-2      # the raised learning rate of the falling-loss check
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 # fused_peaks' edge-case grid, held exactly against the plain version at the
 # main-path shape (B=8 x 18 maps of 128^2), a 1024^2 frame's 256^2 maps and
@@ -440,6 +453,334 @@ def postprocess_times(posts, dev_args, smi) -> None:
               f"({smi})", flush=True)
 
 
+def _train_state_tensors(state):
+    """Clones of every parameter, momentum buffer and BN running statistic."""
+    out = {("p", k): v.detach().clone() for k, v in state.model.named_parameters()}
+    out.update({("m", k): v.clone() for k, v in state.momentum.items()})
+    out.update({("b", k): v.clone() for k, v in state.model.named_buffers()
+                if "running" in k})
+    return out
+
+
+def _rel_err(a: dict, b: dict, floor: float = 1e-3) -> float:
+    """Largest max|a - b| over tensors, each over its scale (its max|b|, at
+    least ``floor`` of the largest)."""
+    top = max(float(v.abs().max()) for v in b.values())
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               / max(float(b[k].abs().max()), floor * top) for k in b)
+
+
+def _global_rel_err(a: dict, b: dict) -> float:
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+    return (num / sum(float((b[k].double() ** 2).sum()) for k in b)) ** 0.5
+
+
+def train_profile(step_fn, state, batch, lr, step_ms, smi):
+    """torch.profiler over TRAIN_PROFILED steps on one staged batch: the
+    card's busy time a step (its kernels' time), as a share of the step's
+    time between CUDA events without the profiler (``step_ms``), and the
+    five operators whose kernels took most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILED):
+            step_fn(state, *batch, lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in rows
+               if e.device_type == DeviceType.CUDA) / 1e6
+    kernels_a_step = sum(e.count for e in rows
+                         if e.device_type == DeviceType.CUDA) / TRAIN_PROFILED
+    ops = sorted((e for e in rows if e.device_type != DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    top = [(e.key, e.self_device_time_total / 1e3 / TRAIN_PROFILED, e.count // TRAIN_PROFILED)
+           for e in ops]
+    busy_ms = busy / TRAIN_PROFILED * 1e3
+    print(f"  profiler over {TRAIN_PROFILED} steps ({wall / TRAIN_PROFILED * 1e3:.1f} ms "
+          f"a step while profiled): the card busy {busy_ms:.1f} ms a step, "
+          f"{busy_ms / step_ms:.3f} of the {step_ms:.1f} ms step; "
+          f"{kernels_a_step:.0f} device kernels and copies a step; top operators "
+          f"by device time a step: "
+          + "; ".join(f"{k} {ms:.2f} ms ({n} calls)" for k, ms, n in top)
+          + f" ({smi})", flush=True)
+    return busy_ms / step_ms, top
+
+
+def train_feed_run(model, config, feed, device, smi):
+    """TRAIN_WARM + TRAIN_TIMED steps of the Canonical model at 512², batch
+    8, bf16 compute, through PrefetchingLoader and the trainer's staging;
+    then the step alone on a staged batch (CUDA events) and a profile."""
+    from improved_body_parts_tpu_torch import train_lib
+    from improved_body_parts_tpu_torch.apps.train import staged_batches
+    from improved_body_parts_tpu_torch.data.prefetch import PrefetchingLoader
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+
+    compact = feed != "dense"
+    tcfg = config.train
+    state = train_lib.create_train_state(model, tcfg)
+    step = train_lib.make_train_step(model, config, compact_gt=compact)
+    loader = PrefetchingLoader(SyntheticDataset(config, length=64,
+                                                image_size=config.height),
+                               num_workers=6)
+    n = TRAIN_WARM + TRAIN_TIMED
+    batches = staged_batches(loader.batches(TRAIN_BATCH, n, seed=1, compact=compact,
+                                            image_u8=feed == "compact-u8"),
+                             device, depth=2)
+    lr = tcfg.learning_rate
+    losses = []
+    for i, batch in enumerate(batches):
+        if i == TRAIN_WARM:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        losses.append(step(state, *batch, lr)["loss"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{feed}: non-finite training loss {losses.tolist()}")
+    kept = batch
+    step_ms = device_ms(lambda: step(state, *kept, lr), runs=5)
+    busy, top = train_profile(step, state, kept, lr, step_ms, smi)
+    row = dict(feed=feed, e2e_ms=wall * 1e3, step_ms=step_ms,
+               images_per_s=TRAIN_BATCH / step_ms * 1e3,
+               e2e_images_per_s=TRAIN_BATCH / wall, peak_gib=peak, busy=busy,
+               top=[k for k, _, _ in top])
+    print(f"{feed}: {step_ms:.1f} ms a step alone (median of 5, CUDA events) = "
+          f"{row['images_per_s']:.1f} images/s; through the loader and staging "
+          f"{wall * 1e3:.1f} ms a step = {row['e2e_images_per_s']:.1f} images/s; "
+          f"peak {peak:.2f} GiB; losses {[round(x, 3) for x in losses.tolist()]} "
+          f"({smi})", flush=True)
+    return row, state
+
+
+def tiny_train_config(config):
+    import dataclasses
+
+    from improved_body_parts_tpu_torch.configs import ModelConfig
+    return dataclasses.replace(
+        config, width=64, height=64,
+        model=ModelConfig(nstack=2, inp_dim=32, increase=16),
+        train=dataclasses.replace(config.train, max_grad_norm=1.0, swa=True))
+
+
+def tiny_batch(n=8):
+    from improved_body_parts_tpu_torch.data.heatmaps_device import pad_people
+    from improved_body_parts_tpu_torch.data.synthetic import random_people
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.rand(n, 64, 64, 3).astype(np.float32))
+    mask = torch.from_numpy((rng.rand(n, 16, 16, 1) > 0.2).astype(np.float32))
+    joints = torch.from_numpy(np.stack([pad_people(random_people(rng, 64, 64), 4)
+                                        for _ in range(n)]))
+    mask_all = torch.from_numpy((rng.rand(n, 16, 16) > 0.2).astype(np.float32))
+    return imgs, mask, (joints, mask_all)
+
+
+def _to(batch, device, dtype=None):
+    if isinstance(batch, tuple):
+        return tuple(_to(b, device, dtype) for b in batch)
+    return batch.to(device, dtype)
+
+
+def training(device, smi, config_name: str = "Canonical") -> None:
+    """Phase 8: the training path (train_lib, apps/train's staging, the
+    checkpoints) at the width of ``config_name``, and its checks."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from improved_body_parts_tpu_torch import train_lib
+    from improved_body_parts_tpu_torch.apps.evaluate import build_predictor
+    from improved_body_parts_tpu_torch.configs import get_config
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+    from improved_body_parts_tpu_torch.models.imhn import PoseNet
+    from improved_body_parts_tpu_torch.ops import kernels
+    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = get_config(config_name)
+    g = torch.Generator().manual_seed(SEED)
+    model = PoseNet(config.model, compute_dtype=torch.bfloat16, generator=g).to(
+        device, memory_format=torch.channels_last)
+
+    # -- steps: dense and compact-u8 feeds, then remat --------------------------
+    rows = []
+    for feed in ("dense", "compact-u8"):
+        row, state = train_feed_run(model, config, feed, device, smi)
+        rows.append(row)
+    remat_cfg = dataclasses.replace(config.model, remat=True)
+    remat = PoseNet(remat_cfg, compute_dtype=torch.bfloat16, device="meta")
+    remat = remat.to_empty(device=device).to(memory_format=torch.channels_last)
+    remat.load_state_dict(model.state_dict())
+    rstate = train_lib.create_train_state(remat, config.train)
+    rstep = train_lib.make_train_step(remat, dataclasses.replace(config, model=remat_cfg),
+                                      compact_gt=True)
+    ds = SyntheticDataset(config, length=TRAIN_BATCH, image_size=config.height)
+    samples = [ds.get_compact(i, image_u8=True) for i in range(TRAIN_BATCH)]
+    batch = _to((torch.stack([s[0] for s in samples]), torch.stack([s[1] for s in samples]),
+                 (torch.stack([s[2][0] for s in samples]),
+                  torch.stack([s[2][1] for s in samples]))), device)
+    rstep(rstate, *batch, config.train.learning_rate)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_ms = device_ms(lambda: rstep(rstate, *batch, config.train.learning_rate),
+                         runs=3)
+    remat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"remat (each hourglass recomputed in the backward pass), compact-u8: "
+          f"{remat_ms:.1f} ms a step, peak {remat_peak:.2f} GiB against "
+          f"{rows[1]['peak_gib']:.2f} GiB without ({smi})", flush=True)
+    del remat, rstate, rstep
+    torch.cuda.empty_cache()
+
+    # -- rollback: abnormal loss keeps everything bit-identical ---------------------
+    bad = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, abnormal_loss_thresh=1e-9))
+    bstep = train_lib.make_train_step(model, bad, compact_gt=True)
+    before = _train_state_tensors(state)
+    metrics = bstep(state, *batch, 1e-2)
+    after = _train_state_tensors(state)
+    same = all(torch.equal(after[k], v) for k, v in before.items())
+    if float(metrics["skipped"]) != 1.0 or not same:
+        raise AssertionError("the abnormal-loss rule did not keep the state")
+    print(f"rollback: abnormal_loss_thresh 1e-9 -> skipped 1, {len(before)} "
+          "parameters, momentum buffers and BN statistics bit-identical", flush=True)
+    del before, after
+
+    # -- train to serve: the checkpoint of this state through build_predictor -------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ckpt.save_train_state(tmp, train_lib.state_payload(
+            state, config.train, epoch=0, train_loss=float(metrics["loss"])), step=0)
+        mb = os.path.getsize(path) / 2 ** 20
+        pred = build_predictor(path, config_name, device=device)
+        for k, v in pred.model.state_dict().items():
+            if not torch.equal(v.cpu(), model.state_dict()[k].cpu()):
+                raise AssertionError(f"served weights differ from trained: {k}")
+        frames = (batch[0].cpu().numpy())
+        pred.predict_batch(frames, use_cpp=True)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        results = pred.predict_batch(frames, use_cpp=True)
+        torch.cuda.synchronize()
+        if len(results) != TRAIN_BATCH or kernels.nms.launches == 0:
+            raise AssertionError("the trained checkpoint did not serve through nms")
+        print(f"train to serve: {mb:.0f} MiB checkpoint -> apps.evaluate."
+              f"build_predictor -> predict_batch of {TRAIN_BATCH}: "
+              f"{sum(len(k) for k, _ in results)} people (two steps from the "
+              f"reference init), nms launches {kernels.nms.launches}", flush=True)
+        del pred
+
+    # -- learning: one fixed batch, raised LR -----------------------------------
+    lcfg = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, max_grad_norm=1.0))
+    lstep = train_lib.make_train_step(model, lcfg, compact_gt=True)
+    lstate = train_lib.create_train_state(model, lcfg.train)
+    losses = torch.stack([lstep(lstate, *batch, LEARN_LR)["loss"]
+                          for _ in range(10)]).cpu()
+    print(f"learning: 10 steps on one batch at lr {LEARN_LR}, clip 1: losses "
+          f"{[round(x, 3) for x in losses.tolist()]}", flush=True)
+    if not (torch.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("the loss did not fall over 10 steps")
+    del lstate, state
+    torch.cuda.empty_cache()
+
+    # -- tiny steps: the card against the CPU ------------------------------------
+    # Frozen BN in fp32, every tensor at 1e-4. Train-mode BN in float64 on
+    # both, every tensor at 1e-6 (floor 1e-6 of the largest): at this size
+    # the train-mode step is chaotic, a 1e-7 change of the images moves the
+    # float64 gradient by percents (tools/train_bn_conditioning.py), so an
+    # fp32 step of either device lies percents from the exact one; those
+    # distances are printed as readings, and only the loss is held.
+    tcfg = tiny_train_config(config)
+    host = PoseNet(tcfg.model, compute_dtype=torch.float32,
+                   generator=torch.Generator().manual_seed(SEED))
+    tb = tiny_batch()
+
+    def tiny_step(dev, dtype, freeze_bn):
+        m = copy.deepcopy(host).to(dev, dtype)
+        m.compute_dtype = dtype
+        st = train_lib.create_train_state(m, tcfg.train)
+        step = train_lib.make_train_step(m, tcfg, freeze_bn=freeze_bn,
+                                         compact_gt=True)
+        met = step(st, *_to(tb, dev, dtype), 1e-2)
+        return ({k: float(v) for k, v in met.items()},
+                {k: v.cpu() for k, v in _train_state_tensors(st).items()})
+
+    def errors(got, want, floor):
+        (mg, tg), (mw, tw) = got, want
+        err = dict(loss=abs(mg["loss"] - mw["loss"]) / abs(mw["loss"]),
+                   gn=abs(mg["grad_norm"] - mw["grad_norm"]) / mw["grad_norm"])
+        for part in "pmb":
+            keys = [k for k in tw if k[0] == part]
+            err[part] = _rel_err({k: tg[k] for k in keys}, {k: tw[k] for k in keys},
+                                 floor)
+        return err
+
+    def show(what, err, tol):
+        names = dict(loss="loss", gn="grad norm", p="params", m="momentum",
+                     b="BN stats")
+        print(f"tiny step (nstack 2, inp_dim 32, 64², batch 8), {what}: "
+              + ", ".join(f"{names[k]} {v:.2e}" + (f" (tol {tol[k]})" if k in tol else "")
+                          for k, v in err.items()), flush=True)
+        if not all(err[k] <= tol[k] for k in tol):
+            raise AssertionError(f"the tiny train step disagrees: {what}")
+
+    show("fp32, frozen BN, card vs CPU",
+         errors(tiny_step(device, torch.float32, True),
+                tiny_step(CPU, torch.float32, True), 1e-3),
+         dict(loss=1e-5, gn=1e-4, p=1e-4, m=1e-4, b=0.0))
+    exact = tiny_step(CPU, torch.float64, False)
+    show("float64, train-mode BN, card vs CPU",
+         errors(tiny_step(device, torch.float64, False), exact, 1e-6),
+         dict(loss=1e-9, gn=1e-6, p=1e-6, m=1e-6, b=1e-6))
+    for where, dev in (("card", device), ("CPU", CPU)):
+        show(f"fp32, train-mode BN, {where} vs CPU float64 (readings; loss held)",
+             errors(tiny_step(dev, torch.float32, False), exact, 1e-3),
+             dict(loss=1e-5))
+
+    # -- checkpoint: step, save, restore, step == two steps straight ----------
+    # (tiny, fp32; the second step with frozen BN, whose backward is well
+    # conditioned, since atomics in some CUDA backward kernels make two runs
+    # of one step differ in the last bits)
+    torch.backends.cudnn.deterministic = True
+    m1 = copy.deepcopy(host).to(device)
+    s1 = train_lib.create_train_state(m1, tcfg.train)
+    dev_b = _to(tb, device)
+    train_lib.make_train_step(m1, tcfg, compact_gt=True)(s1, *dev_b, 1e-2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save_train_state(tmp, train_lib.state_payload(s1, tcfg.train, epoch=0),
+                              step=0)
+        m2 = copy.deepcopy(host).to(device)
+        s2 = train_lib.create_train_state(m2, tcfg.train)
+        train_lib.load_payload(s2, ckpt.restore_train_state(tmp))
+    outs = []
+    for m, st in ((m1, s1), (m2, s2)):
+        met = train_lib.make_train_step(m, tcfg, freeze_bn=True, compact_gt=True)(
+            st, *dev_b, 5e-3)
+        outs.append((float(met["loss"]), _train_state_tensors(st)))
+    torch.backends.cudnn.deterministic = False
+    (la, a), (lb, b) = outs
+    worst = max(float((a[k] - b[k]).abs().max()) for k in a)
+    err = _rel_err(b, a)
+    print(f"checkpoint: step, save, restore, step against two steps straight: "
+          f"losses {la!r} / {lb!r}, max abs difference {worst:.3e} over "
+          f"{len(a)} tensors ({err:.2e} of scale; tolerance 1e-5)", flush=True)
+    if not (err <= 1e-5 and abs(la - lb) <= 1e-6 * abs(la)):
+        raise AssertionError("resumed training differs from training straight through")
+
+    line = {r["feed"]: {k: r[k] for k in ("step_ms", "images_per_s", "e2e_ms",
+                                          "e2e_images_per_s", "peak_gib", "busy")}
+            for r in rows}
+    line["remat"] = {"step_ms": remat_ms, "peak_gib": remat_peak}
+    print(json.dumps({"training": line}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -625,6 +966,10 @@ def main() -> int:
     # -- 7: the entry points ----------------------------------------------------------
     phase(f"7 apps: evaluator on {N_EVAL} synthetic frames, demo --synthetic")
     entry_points(model, config, device, smi)
+
+    # -- 8: training ------------------------------------------------------------------
+    phase(f"8 training, Canonical 512², batch {TRAIN_BATCH}")
+    training(device, smi)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

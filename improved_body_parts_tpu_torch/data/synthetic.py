@@ -8,14 +8,19 @@ real pipeline (data/mydataset.py:15-37): image (H,W,3) float32 in [0,1],
 mask_miss (H/4,W/4,1), heatmaps (H/4,W/4,50).
 
 The port's copy of ``improved_body_parts_tpu/data/synthetic.py``:
-``random_people``, ``render_image`` and ``SyntheticDataset`` with its
-``__getitem__`` (the compact and device-resident feeds of the JAX trainer
-are not copied).
+``random_people``, ``render_image`` and ``SyntheticDataset`` with the
+trainer's feeds, ``__getitem__`` (dense) and ``get_compact``, and
+``batches`` (the device-resident feed of the JAX trainer is not ported).
+The compact feed's bf16 arrays are torch tensors (numpy has no bf16): the
+fp32 -> bf16 conversion rounds to nearest even, as ``ml_dtypes`` does.
 """
 
 from __future__ import annotations
 
+from typing import Iterator, Tuple
+
 import numpy as np
+import torch
 
 from improved_body_parts_tpu_torch.configs import NUM_PARTS, CanonicalConfig
 from improved_body_parts_tpu_torch.data.heatmaps import Heatmapper
@@ -102,3 +107,64 @@ class SyntheticDataset:
         heat = self.hm.create_heatmaps(joints, np.ones(self.hm.X.shape, np.float32))
         mask = np.ones((self.hm.h, self.hm.w, 1), np.float32)
         return img, mask, heat
+
+    def get_compact(self, idx: int, rng=None, max_people: int = 8,
+                    image_u8: bool = False):
+        # rng accepted for API uniformity with CocoH5Dataset.get_compact;
+        # synthetic samples are deterministic-by-index
+        """Compact sample for device-side GT rendering: (image bf16,
+        mask_miss bf16, (joints (P,18,3) f32, mask_all (h,w) bf16)), all
+        torch tensors on the CPU. ~8× less host->device payload than the
+        dense form; the heatmaps are rasterized inside the train step
+        (data/heatmaps_device.py). ``image_u8`` ships the image as uint8
+        instead (half the bf16 bytes; the step normalizes it —
+        quantization ≤1/510 per pixel, the same order as bf16 rounding)."""
+        from improved_body_parts_tpu_torch.data.heatmaps_device import pad_people
+        rng = np.random.RandomState(self.seed * 100003 + idx)
+        H = W = self.size
+        joints = random_people(rng, H, W)
+        img = render_image(joints, H, W, rng)
+        bf16 = torch.bfloat16
+        mask = torch.ones((self.hm.h, self.hm.w, 1), dtype=bf16)
+        mask_all = torch.ones((self.hm.h, self.hm.w), dtype=bf16)
+        img = torch.from_numpy(
+            np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+            if image_u8 else img.astype(np.float32))
+        if not image_u8:
+            img = img.to(bf16)
+        return (img, mask, (torch.from_numpy(pad_people(joints, max_people)),
+                            mask_all))
+
+    def batches(self, batch_size: int, steps: int, seed: int = 0,
+                rank: int = 0, world: int = 1, compact: bool = False,
+                max_people: int = 8, image_u8: bool = False,
+                ) -> Iterator[Tuple]:
+        """``batch_size`` is GLOBAL; with world > 1 every process draws the
+        same index plan from ``seed`` and loads only its contiguous
+        1/world slice (the reference DistributedSampler pattern,
+        train_distributed.py:209-211). With ``compact`` the GT slot holds
+        (joints, mask_all) instead of dense heatmaps."""
+        rng = np.random.RandomState(seed)
+        per = batch_size // world
+        assert per * world == batch_size, (batch_size, world)
+        for _ in range(steps):
+            idxs = rng.randint(0, self.length, batch_size)
+            idxs = idxs[rank * per:(rank + 1) * per]
+            if compact:
+                samples = [self.get_compact(i, max_people=max_people,
+                                            image_u8=image_u8)
+                           for i in idxs]
+            else:
+                samples = [self[i] for i in idxs]
+            yield stack_samples(samples, compact)
+
+
+def stack_samples(samples, compact: bool) -> Tuple:
+    """A list of (image, mask, gt) samples -> one batch; ``gt`` is a pair
+    (joints, mask_all) when ``compact``. numpy arrays stack with numpy,
+    torch tensors with torch."""
+    def stack(xs):
+        return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+    gt = ((stack([s[2][0] for s in samples]), stack([s[2][1] for s in samples]))
+          if compact else stack([s[2] for s in samples]))
+    return (stack([s[0] for s in samples]), stack([s[1] for s in samples]), gt)

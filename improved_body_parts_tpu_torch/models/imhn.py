@@ -10,7 +10,20 @@ mirror's ``TPoseNet`` state_dict alike.
 Precision follows the JAX model: parameters are stored in fp32; convs and
 linears run in ``compute_dtype`` (bf16 by default) on weights cast at the
 call; BatchNorm math runs in fp32 (eps 1e-5) and is cast back; the SE mean is
-taken in fp32; outputs are cast to fp32. Convs are
+taken in fp32; outputs are cast to fp32. A float64 model (``.double()``,
+``compute_dtype=torch.float64``) keeps float64 throughout: it is the
+reference the tests hold the train-mode step against.
+
+BatchNorm mode is an explicit argument, ``forward(imgs, train=...)``, as in
+the JAX model's ``__call__(imgs, train=False)``; ``nn.Module.training`` is
+never read, so a module left in training mode still serves on running
+statistics. In train mode (``train=True``, or a ``bn_stats`` dict given)
+each BatchNorm normalizes with the batch's fp32 mean and biased variance
+over (N, H, W) and records them in ``bn_stats``, keyed by the
+``BatchNorm2d`` module; the forward leaves
+the running statistics alone and the train step commits them
+(``train_lib``), so a skipped step and a recomputed (``remat``) hourglass
+leave them right. Convs are
 ``torch.nn.functional.conv2d`` (cuDNN on the card), as the JAX package left
 them to XLA. Public tensors are NHWC like the JAX model's; inside, tensors
 are NCHW, and ``channels_last`` in memory when the input and the module are.
@@ -18,11 +31,12 @@ are NCHW, and ``channels_last`` in memory when the input and the module are.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from improved_body_parts_tpu_torch.configs import ModelConfig
 
@@ -33,17 +47,37 @@ BN_EPS = 1e-5
 CONV_INIT_STD = 0.001
 DENSE_INIT_STD = 0.01
 
+# {BatchNorm2d: (batch mean, batch biased variance)} in ``wide`` type,
+# detached; None selects inference mode (running statistics)
+BNStats = Optional[Dict[nn.BatchNorm2d, Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def wide(dt: torch.dtype) -> torch.dtype:
+    """The type BN statistics, the SE mean and the outputs are kept in:
+    fp32, or float64 for a float64 model."""
+    return torch.promote_types(dt, torch.float32)
+
 
 def conv_bn(conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d], x: torch.Tensor,
-            relu: bool) -> torch.Tensor:
-    """conv in ``x.dtype`` -> [BN in fp32, cast back] -> [LeakyReLU]."""
+            relu: bool, bn_stats: BNStats = None) -> torch.Tensor:
+    """conv in ``x.dtype`` -> [BN in ``wide(x.dtype)``, cast back] -> [LeakyReLU].
+    With ``bn_stats`` (train mode) BN uses the batch's statistics and
+    records them there; without, the running statistics."""
     dt = x.dtype
     bias = None if conv.bias is None else conv.bias.to(dt)
     y = F.conv2d(x, conv.weight.to(dt), bias, conv.stride, conv.padding,
                  conv.dilation)
     if bn is not None:
-        mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-        y = ((y.float() - bn.running_mean[:, None, None]) * mul[:, None, None]
+        y32 = y.to(wide(dt))
+        if bn_stats is None:
+            mean, var = bn.running_mean, bn.running_var
+        else:
+            # two-pass variance (Flax takes E[x^2] - E[x]^2, which loses
+            # digits when |mean| >> std); biased, as Flax records it
+            var, mean = torch.var_mean(y32, dim=(0, 2, 3), correction=0)
+            bn_stats[bn] = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + BN_EPS) * bn.weight
+        y = ((y32 - mean[:, None, None]) * mul[:, None, None]
              + bn.bias[:, None, None]).to(dt)
     return F.leaky_relu(y, LEAKY_SLOPE) if relu else y
 
@@ -62,8 +96,8 @@ class Conv(nn.Module):
         self.bn = nn.BatchNorm2d(outs, device=device) if bn else None
         self.relu = nn.LeakyReLU(LEAKY_SLOPE) if relu else None
 
-    def forward(self, x):
-        return conv_bn(self.conv, self.bn, x, self.relu is not None)
+    def forward(self, x, bn_stats: BNStats = None):
+        return conv_bn(self.conv, self.bn, x, self.relu is not None, bn_stats)
 
 
 class Residual(nn.Module):
@@ -87,13 +121,13 @@ class Residual(nn.Module):
         else:
             self.skipConv = None
 
-    def forward(self, x):
+    def forward(self, x, bn_stats: BNStats = None):
         cb = self.convBlock
-        h = conv_bn(cb[0], cb[1], x, True)
-        h = conv_bn(cb[3], cb[4], h, True)
-        h = conv_bn(cb[6], cb[7], h, False)
+        h = conv_bn(cb[0], cb[1], x, True, bn_stats)
+        h = conv_bn(cb[3], cb[4], h, True, bn_stats)
+        h = conv_bn(cb[6], cb[7], h, False, bn_stats)
         if self.skipConv is not None:
-            x = conv_bn(self.skipConv[0], self.skipConv[1], x, False)
+            x = conv_bn(self.skipConv[0], self.skipConv[1], x, False, bn_stats)
         return F.leaky_relu(h + x, LEAKY_SLOPE)
 
 
@@ -110,7 +144,7 @@ class SELayer(nn.Module):
     def forward(self, x):
         dt = x.dtype
         fc1, fc2 = self.fc[0], self.fc[2]
-        y = x.float().mean(dim=(2, 3)).to(dt)          # global pool in fp32
+        y = x.to(wide(dt)).mean(dim=(2, 3)).to(dt)     # global pool in fp32
         y = F.leaky_relu(F.linear(y, fc1.weight.to(dt), fc1.bias.to(dt)),
                          LEAKY_SLOPE)
         y = torch.sigmoid(F.linear(y, fc2.weight.to(dt), fc2.bias.to(dt)))
@@ -140,10 +174,13 @@ class Backbone(nn.Module):
             Conv(h, h, 3, dilation=d, device=device)
             for d in (3, 3, 4, 4, 5, 5)])
 
-    def forward(self, x):
-        x = conv_bn(self.conv1, self.bn1, x, True)
-        x = self.res2(max_pool2(self.res1(x)))
-        return torch.cat([x, self.dilation(x)], dim=1)
+    def forward(self, x, bn_stats: BNStats = None):
+        x = conv_bn(self.conv1, self.bn1, x, True, bn_stats)
+        x = self.res2(max_pool2(self.res1(x, bn_stats)), bn_stats)
+        h = x
+        for conv in self.dilation:
+            h = conv(h, bn_stats)
+        return torch.cat([x, h], dim=1)
 
 
 class Hourglass(nn.Module):
@@ -167,18 +204,19 @@ class Hourglass(nn.Module):
             levels.append(nn.ModuleList(mods))
         self.hg = nn.ModuleList(levels)
 
-    def _level(self, d: int, x, downs: List[torch.Tensor]):
+    def _level(self, d: int, x, downs: List[torch.Tensor], bn_stats: BNStats):
         mods = self.hg[d]
-        up1 = mods[0](x)
-        low = mods[1](max_pool2(x))
-        low2 = mods[4](low) if d == self.depth - 1 else self._level(d + 1, low, downs)
+        up1 = mods[0](x, bn_stats)
+        low = mods[1](max_pool2(x), bn_stats)
+        low2 = (mods[4](low, bn_stats) if d == self.depth - 1
+                else self._level(d + 1, low, downs, bn_stats))
         downs.append(low2)                      # innermost appended first
-        low3 = mods[2](low2)
-        return up1 + mods[3](upsample_nearest2(low3))
+        low3 = mods[2](low2, bn_stats)
+        return up1 + mods[3](upsample_nearest2(low3), bn_stats)
 
-    def forward(self, x):
+    def forward(self, x, bn_stats: BNStats = None):
         downs: List[torch.Tensor] = []
-        top = self._level(0, x, downs)
+        top = self._level(0, x, downs, bn_stats)
         return [top] + downs[::-1]
 
 
@@ -203,8 +241,8 @@ class Merge(nn.Module):
         super().__init__()
         self.conv = Conv(x_dim, y_dim, 1, relu=False, device=device)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, bn_stats: BNStats = None):
+        return self.conv(x, bn_stats)
 
 
 class PoseNet(nn.Module):
@@ -267,14 +305,23 @@ class PoseNet(nn.Module):
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
 
-    def _run(self, imgs: torch.Tensor, full: bool) -> List[List[torch.Tensor]]:
+    def _run(self, imgs: torch.Tensor, full: bool,
+             bn_stats: BNStats = None) -> List[List[torch.Tensor]]:
         cfg = self.cfg
-        x = self.pre(imgs.permute(0, 3, 1, 2).to(self.compute_dtype))
+        x = self.pre(imgs.permute(0, 3, 1, 2).to(self.compute_dtype), bn_stats)
         preds: List[List[torch.Tensor]] = []
         caches: List[Optional[torch.Tensor]] = [None] * cfg.num_scales
+        # remat: each hourglass is recomputed in the backward pass (the JAX
+        # model's nn.remat over Hourglass); the recompute records the same
+        # batch statistics again under the same keys
+        remat = cfg.remat and torch.is_grad_enabled()
         for t in range(cfg.nstack):
             last = t == cfg.nstack - 1
-            hg = self.hourglass[t](x)
+            if remat:
+                hg = checkpoint(self.hourglass[t], x, bn_stats,
+                                use_reentrant=False)
+            else:
+                hg = self.hourglass[t](x, bn_stats)
             if t > 0:
                 hg = [h + c for h, c in zip(hg, caches)]
             # the last stack's coarser scales feed nothing when only the
@@ -282,21 +329,30 @@ class PoseNet(nn.Module):
             scales = range(cfg.num_scales) if (full or not last) else (0,)
             stack = []
             for s in scales:
-                feat = self.features[t].before_regress[s](hg[s])
+                trunk = self.features[t].before_regress[s]
+                feat = trunk[2](trunk[1](trunk[0](hg[s], bn_stats), bn_stats))
                 pred = self.outs[t][s](feat)
                 stack.append(pred)
                 if not last:
-                    cache = (self.merge_preds[t][s](pred)
-                             + self.merge_features[t][s](feat))
+                    cache = (self.merge_preds[t][s](pred, bn_stats)
+                             + self.merge_features[t][s](feat, bn_stats))
                     if s == 0:
                         x = x + cache
                     caches[s] = cache
             preds.append(stack)
-        return [[p.float().permute(0, 2, 3, 1) for p in st] for st in preds]
+        return [[p.to(wide(p.dtype)).permute(0, 2, 3, 1) for p in st]
+                for st in preds]
 
-    def forward(self, imgs: torch.Tensor) -> List[List[torch.Tensor]]:
-        """imgs (B, H, W, 3) in [0, 1] -> [nstack][num_scales] NHWC fp32."""
-        return self._run(imgs, full=True)
+    def forward(self, imgs: torch.Tensor, train: bool = False,
+                bn_stats: BNStats = None) -> List[List[torch.Tensor]]:
+        """imgs (B, H, W, 3) in [0, 1] -> [nstack][num_scales] NHWC fp32.
+        A ``bn_stats`` dict selects train mode and receives the batch
+        statistics (the running statistics stay as they are); ``train=True``
+        alone is train mode with the statistics dropped. Otherwise BN uses
+        the running statistics."""
+        if train and bn_stats is None:
+            bn_stats = {}
+        return self._run(imgs, full=True, bn_stats=bn_stats)
 
     def predict_maps(self, imgs: torch.Tensor) -> torch.Tensor:
         """The serving read-out ``forward(imgs)[-1][0]`` (B, H/4, W/4,

@@ -1,0 +1,241 @@
+"""Training library: the train step as plain functions on tensors.
+
+The port of ``improved_body_parts_tpu/train_lib.py`` (:36-174, 325-352),
+which re-designed the reference trainers (train.py, train_distributed.py,
+train_distributed_SWA.py) as one functional step:
+
+  * SGD(momentum=0.9, weight_decay=1e-4) exactly as torch SGD and the JAX
+    package's optax chain apply it — decay added to the gradient of EVERY
+    parameter (BN scale/shift and biases included) before the momentum
+    trace, ``p <- p - lr * (g + wd * p + momentum * m)``
+    (train_distributed.py:122-123);
+  * epoch-step LR schedule with 3-epoch linear warmup, and the SWA cyclic
+    LR (train_distributed.py:396-423), on the host;
+  * abnormal-loss batch dropping (train_distributed.py:273-275): the new
+    parameters, momentum buffers and BN running statistics are selected
+    against the old ones ON THE DEVICE from ``ok = isfinite(loss) &
+    (loss <= thresh)``, with no host sync in the step;
+  * optional global-norm gradient clipping, the norm taken before the decay;
+  * SWA: a running parameter average (train_distributed_SWA.py:403-424).
+
+The state is updated in place (the JAX step returns a new state); metrics
+(``loss``, ``grad_norm``, ``skipped``) stay on the device until the caller
+fetches them. One card; multi-GPU DDP with SyncBatchNorm is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+
+from improved_body_parts_tpu_torch.configs import CanonicalConfig, TrainConfig
+from improved_body_parts_tpu_torch.losses import multi_task_loss
+
+BN_MOMENTUM = 0.9        # Flax decay 0.9 == torch momentum 0.1
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What the JAX ``TrainState`` holds, around a live model: parameters
+    and BN statistics live in ``model``; ``momentum`` is the optax trace
+    (torch SGD's momentum buffer), keyed by parameter name."""
+    model: torch.nn.Module
+    momentum: Dict[str, torch.Tensor]
+    step: torch.Tensor                          # int64 global step, on the device
+    swa_params: Optional[Dict[str, torch.Tensor]]
+    swa_count: torch.Tensor                     # int64 SWA accumulations
+
+
+def create_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
+    params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
+    return TrainState(
+        model=model,
+        momentum={k: torch.zeros_like(p) for k, p in params.items()},
+        step=torch.zeros((), dtype=torch.int64, device=dev),
+        swa_params=({k: torch.zeros_like(p) for k, p in params.items()}
+                    if cfg.swa else None),
+        swa_count=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def learning_rate(cfg: TrainConfig, epoch: int, step_in_epoch: int,
+                  len_epoch: int, data_parallel: int = 1,
+                  use_warmup: bool = True) -> float:
+    """Host-side LR schedule. reference: train_distributed.py:396-414."""
+    factor = epoch // cfg.lr_step_epochs
+    if epoch >= cfg.lr_late_epoch:
+        factor = (epoch - cfg.lr_late_epoch) // cfg.lr_late_step_epochs
+    lr = cfg.learning_rate * data_parallel * (cfg.lr_step_factor ** factor)
+    if use_warmup and epoch < cfg.warmup_epochs:
+        lr = lr * float(1 + step_in_epoch + epoch * len_epoch) / (
+            cfg.warmup_epochs * len_epoch)
+    return lr
+
+
+def cyclic_learning_rate(cfg: TrainConfig, epoch: int, start_epoch: int) -> float:
+    """SWA cyclic LR. reference: train_distributed.py:417-423."""
+    e = epoch - start_epoch
+    f = cfg.swa_freq_epochs
+    if f <= 1:
+        return cfg.swa_lr_min
+    return cfg.swa_lr_max - (cfg.swa_lr_max - cfg.swa_lr_min) / (f - 1) * (e - e // f * f)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def _select_(ok: torch.Tensor, new: List[torch.Tensor],
+             old: List[torch.Tensor]) -> None:
+    """old <- where(ok, new, old), in place, on the device."""
+    for n, o in zip(new, old):
+        torch.where(ok, n, o, out=o)
+
+
+def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
+                    use_focal: bool = True, freeze_bn: bool = False,
+                    compact_gt: bool = False):
+    """Build the train step ``(state, imgs, mask, heat, lr) -> metrics``.
+
+    imgs: (B, H, W, 3) float in [0, 1], or uint8 (normalized in the step as
+    ``float32 / 255``); mask: (B, H/4, W/4, 1); heat: (B, H/4, W/4, 50) —
+    or, with ``compact_gt``, the pair (joints (B,P,18,3), mask_all (B,h,w))
+    rasterized on the device (data/heatmaps_device.py). ``lr`` is a float.
+    ``freeze_bn`` runs BatchNorm in inference mode and keeps the running
+    statistics fixed (the reference's SWA epochs, train_distributed_SWA.py:221).
+    ``state`` is updated in place; the returned metrics are 0-d tensors on
+    the device: ``loss``, ``grad_norm`` and ``skipped`` (1.0 when the
+    abnormal-loss rule kept the old state).
+    """
+    tcfg = cfg.train
+    renderer = None
+    if compact_gt:
+        from improved_body_parts_tpu_torch.data.heatmaps_device import DeviceHeatmapper
+        renderer = DeviceHeatmapper(cfg)
+    names = [k for k, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+
+    def step_fn(state: TrainState, imgs, mask, heat, lr: float):
+        if state.model is not model:
+            raise ValueError("the state belongs to another model")
+        if imgs.dtype == torch.uint8:
+            # uint8 wire format (--feed compact-u8): f32 intermediate so the
+            # only deviation from the fp32 feed is the <=1/510 quantization
+            imgs = imgs.float() / 255.0
+        if compact_gt:
+            heat = renderer.render(*heat)
+        bn_stats = None if freeze_bn else {}       # a dict: train-mode BN
+        outs = model(imgs, bn_stats=bn_stats)
+        loss = multi_task_loss(outs, heat, mask, tcfg, use_focal=use_focal)
+        grads = list(torch.autograd.grad(loss, params))
+
+        with torch.no_grad():
+            gnorm = global_norm(grads)
+            if tcfg.max_grad_norm > 0:
+                scale = torch.clamp(tcfg.max_grad_norm / (gnorm + 1e-6), max=1.0)
+                torch._foreach_mul_(grads, scale)
+            moms = [state.momentum[k] for k in names]
+            # optax add_decayed_weights then trace: u = g + wd*p; m' = u + 0.9*m
+            upd = torch._foreach_add(grads, params, alpha=tcfg.weight_decay)
+            torch._foreach_add_(upd, moms, alpha=tcfg.momentum)
+            new_params = torch._foreach_add(params, upd, alpha=-lr)
+
+            # abnormal-loss batch drop: keep everything unchanged on explosion
+            ok = torch.isfinite(loss) & (loss <= tcfg.abnormal_loss_thresh)
+            _select_(ok, new_params, params)
+            _select_(ok, upd, moms)
+            for bn, (mean, var) in (bn_stats or {}).items():
+                new_mean = BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean
+                new_var = BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var
+                _select_(ok, [new_mean, new_var], [bn.running_mean, bn.running_var])
+            state.step += 1
+        return {"loss": loss.detach(), "grad_norm": gnorm,
+                "skipped": (~ok).float()}
+
+    return step_fn
+
+
+def make_eval_step(model: torch.nn.Module, cfg: CanonicalConfig,
+                   use_focal: bool = True):
+    """Validation loss ``(imgs, mask, heat) -> loss`` with running BN
+    statistics (reference test(), train_distributed.py:341-393)."""
+    tcfg = cfg.train
+
+    @torch.no_grad()
+    def eval_fn(imgs, mask, heat):
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / 255.0
+        return multi_task_loss(model(imgs, train=False), heat, mask, tcfg,
+                               use_focal=use_focal)
+
+    return eval_fn
+
+
+@torch.no_grad()
+def swa_update(state: TrainState) -> None:
+    """Accumulate the running parameter average, (avg * n + p) / (n + 1).
+
+    reference: torchcontrib SWA optimizer.update_swa()
+    (train_distributed_SWA.py:403-424)."""
+    n = state.swa_count.float()
+    for k, p in state.model.named_parameters():
+        avg = state.swa_params[k]
+        avg.copy_((avg * n + p) / (n + 1.0))
+    state.swa_count += 1
+
+
+@torch.no_grad()
+def swa_swap(state: TrainState) -> None:
+    """Swap current params with the SWA average (swap_swa_sgd equivalent)."""
+    for k, p in state.model.named_parameters():
+        tmp = p.detach().clone()
+        p.copy_(state.swa_params[k])
+        state.swa_params[k].copy_(tmp)
+
+
+# ---------------------------------------------------------------------------
+# the state as a checkpoint payload (utils/checkpoint.save_train_state)
+# ---------------------------------------------------------------------------
+
+def state_payload(state: TrainState, cfg: TrainConfig, **extra) -> dict:
+    """The state in the reference's checkpoint layout, on the CPU:
+    ``weights`` (reference-keyed state_dict), ``optimizer_weight`` (the SGD
+    momentum buffers by parameter name, with the SGD settings), ``step``,
+    ``swa_params``/``swa_count``, plus ``extra`` (``epoch``,
+    ``train_loss``)."""
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    payload = {
+        "weights": cpu(state.model.state_dict()),
+        "optimizer_weight": {
+            "momentum_buffer": cpu(state.momentum),
+            "momentum": cfg.momentum, "dampening": 0.0,
+            "weight_decay": cfg.weight_decay, "nesterov": False},
+        "step": int(state.step),
+        "swa_params": None if state.swa_params is None else cpu(state.swa_params),
+        "swa_count": int(state.swa_count),
+    }
+    payload.update(extra)
+    return payload
+
+
+@torch.no_grad()
+def load_payload(state: TrainState, payload: dict) -> None:
+    """Copy a ``state_payload`` (or ``utils/checkpoint.train_state_from_flax``
+    output) into ``state``, in place. A payload without ``swa_params`` leaves
+    the state's SWA average as it is (resuming --swa from a run without)."""
+    state.model.load_state_dict(payload["weights"], strict=True)
+    moms = payload["optimizer_weight"]["momentum_buffer"]
+    if set(moms) != set(state.momentum):
+        raise KeyError("momentum buffers do not match the model's parameters: "
+                       f"{sorted(set(moms) ^ set(state.momentum))[:4]}")
+    for k, m in moms.items():
+        state.momentum[k].copy_(m)
+    state.step.fill_(int(payload["step"]))
+    if payload.get("swa_params") is not None and state.swa_params is not None:
+        for k, a in payload["swa_params"].items():
+            state.swa_params[k].copy_(a)
+        state.swa_count.fill_(int(payload["swa_count"]))

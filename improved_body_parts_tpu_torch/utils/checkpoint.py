@@ -7,15 +7,25 @@
     (:87-172): conv HWIO -> OIHW, Dense (I, O) -> Linear (O, I), BatchNorm
     ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
     ``running_mean``/``running_var``.
-  * ``load_reference_pth`` reads a released reference ``.pth``.
+  * ``train_state_from_flax`` carries a whole JAX ``TrainState`` across:
+    the above, plus the optax momentum trace and the SWA average under the
+    same keys, as a ``train_lib.load_payload`` payload.
+  * ``load_reference_pth`` reads a released reference ``.pth``, and a
+    checkpoint the port's trainer wrote.
+  * ``save_train_state`` / ``restore_train_state`` write and read the
+    trainer's checkpoints: one ``epoch_<N>.pth`` a save in the reference's
+    dict layout ``{weights, optimizer_weight, train_loss, epoch}`` (its
+    train_distributed.py:326-338) plus ``step``, ``swa_params`` and
+    ``swa_count``; they replace the JAX package's orbax calls.
 
 The JAX converter cannot be shared because its module imports jax.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,26 +93,51 @@ def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[Tuple[str, ...], st
             yield path, k, v
 
 
+def _reference_tensors(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax tree shaped like ``params`` or ``batch_stats`` -> fp32 tensors
+    (float64 stays float64) under reference keys, laid out as the port's
+    parameters."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf, val in _leaves(tree):
+        arr = np.asarray(val)
+        arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32)
+        if leaf == "kernel":
+            if arr.ndim == 4:          # HWIO -> OIHW
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:        # Dense (I, O) -> Linear (O, I)
+                arr = arr.T
+        out[flax_to_reference_key(path, leaf)] = torch.from_numpy(np.array(arr))
+    return out
+
+
 def state_dict_from_flax(params: Dict[str, Any],
                          batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ``(params, batch_stats)`` -> reference-keyed fp32 state_dict
     (every BatchNorm also gets ``num_batches_tracked`` = 0, so the result
     loads into ``PoseNet`` with ``strict=True``)."""
-    out: Dict[str, torch.Tensor] = {}
-    for tree in (params, batch_stats):
-        for path, leaf, val in _leaves(tree):
-            arr = np.asarray(val, np.float32)
-            if leaf == "kernel":
-                if arr.ndim == 4:          # HWIO -> OIHW
-                    arr = arr.transpose(3, 2, 0, 1)
-                elif arr.ndim == 2:        # Dense (I, O) -> Linear (O, I)
-                    arr = arr.T
-            key = flax_to_reference_key(path, leaf)
-            out[key] = torch.from_numpy(np.array(arr))   # a writable copy
-            if leaf == "mean":
-                prefix = key[:-len("running_mean")]
-                out[prefix + "num_batches_tracked"] = torch.tensor(0)
+    out = _reference_tensors(params)
+    for key, val in _reference_tensors(batch_stats).items():
+        out[key] = val
+        if key.endswith("running_mean"):
+            out[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def train_state_from_flax(state) -> Dict[str, Any]:
+    """A JAX ``train_lib.TrainState`` (any object with its fields; arrays
+    are read with numpy) -> the payload ``train_lib.load_payload`` takes:
+    ``weights`` (``state_dict_from_flax``), the optax ``trace`` as
+    ``optimizer_weight["momentum_buffer"]``, ``step``, and ``swa_params`` /
+    ``swa_count``, all under reference keys."""
+    trace = next(s.trace for s in state.opt_state if hasattr(s, "trace"))
+    return {
+        "weights": state_dict_from_flax(state.params, state.batch_stats),
+        "optimizer_weight": {"momentum_buffer": _reference_tensors(trace)},
+        "step": int(np.asarray(state.step)),
+        "swa_params": (None if state.swa_params is None
+                       else _reference_tensors(state.swa_params)),
+        "swa_count": int(np.asarray(state.swa_count)),
+    }
 
 
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
@@ -120,3 +155,52 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
         if not key.startswith("criterion."):
             out[key] = val
     return out
+
+
+# ---------------------------------------------------------------------------
+# the trainer's checkpoints
+# ---------------------------------------------------------------------------
+
+_CKPT = re.compile(r"epoch_(\d+)\.pth$")
+
+
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"epoch_{step}.pth")
+
+
+def saved_steps(ckpt_dir: str) -> list:
+    """The steps saved in ``ckpt_dir``, oldest first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for m in map(_CKPT.match, os.listdir(ckpt_dir))
+                  if m)
+
+
+def save_train_state(ckpt_dir: str, payload: Dict[str, Any], step: int,
+                     keep: int = 3) -> str:
+    """Write ``payload`` (``train_lib.state_payload``) as
+    ``<ckpt_dir>/epoch_<step>.pth`` and delete all but the newest ``keep``
+    files. The write goes through a temporary name, so a cut run leaves no
+    half-written checkpoint. Returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = checkpoint_path(ckpt_dir, step)
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    for old in saved_steps(ckpt_dir)[:-keep] if keep > 0 else []:
+        os.remove(checkpoint_path(ckpt_dir, old))
+    return path
+
+
+def restore_train_state(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """Read a checkpoint of ``save_train_state``: ``step``, or the newest.
+    ``DIR@N`` selects step N inside DIR, as the JAX package's does."""
+    if step is None and "@" in os.path.basename(ckpt_dir):
+        ckpt_dir, _, s = ckpt_dir.rpartition("@")
+        step = int(s)
+    if step is None:
+        steps = saved_steps(ckpt_dir)
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
+        step = steps[-1]
+    return torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu",
+                      weights_only=True)

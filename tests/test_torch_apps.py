@@ -279,3 +279,65 @@ def test_demo_image_with_tta_and_maps(tiny, coco, tmp_path):
         "--device", "cpu", "--dtype", "float32", "--run_cpp"]) == 0
     assert cv2.imread(str(out)).shape == (SIZE, SIZE, 3)
     assert len(os.listdir(tmp_path)) > 1          # the map overlays
+
+
+# ---------------------------------------------------------------------------
+# apps/train.py
+# ---------------------------------------------------------------------------
+
+def test_train_cli_writes_log_and_a_checkpoint_the_apps_serve(tmp_path, capsys):
+    """python -m ...apps.train --device cpu --tiny-model for one epoch of 2
+    steps writes its log and epoch checkpoint, and build_predictor serves
+    the checkpoint's weights (the tiny model registered as a config)."""
+    from improved_body_parts_tpu_torch.apps import train as ttrain
+    out = tmp_path / "ck"
+    assert ttrain.main(["--device", "cpu", "--tiny-model", "--epochs", "1",
+                        "--steps-per-epoch", "2", "--batch-size", "1",
+                        "--image-size", "64", "-p", str(out), "--workers", "2",
+                        "--print-freq", "1"]) == 0
+    assert "=== epoch 0: train" in capsys.readouterr().out
+    assert (out / "log").read_text().startswith("Epoch 0\ttrain_loss: ")
+    path = out / "pth" / "epoch_0.pth"
+    saved = torch.load(path, weights_only=True)
+    assert {"weights", "optimizer_weight", "train_loss", "epoch", "step",
+            "swa_params", "swa_count"} <= set(saved)
+    assert saved["epoch"] == 0 and saved["step"] == 2
+    tiny = tconfigs.CanonicalConfig(width=64, height=64, model=tconfigs.ModelConfig(
+        nstack=2, inp_dim=64, increase=32))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tconfigs.CONFIGS, "TrainedTiny", tiny)
+        pred = tdemo.build_predictor(str(path), "TrainedTiny", device=CPU,
+                                     dtype=torch.float32)
+    for k, v in pred.model.state_dict().items():
+        assert torch.equal(v, saved["weights"][k]), k
+    kps, scores = pred.predict_batch(np.zeros((1, 64, 64, 3), np.uint8))[0]
+    assert kps.shape[1:] == (18, 3)
+
+
+def test_train_cli_resume_swa_and_compact_feed(tmp_path):
+    from improved_body_parts_tpu_torch.apps import train as ttrain
+    out = str(tmp_path / "ck")
+    common = ["--device", "cpu", "--tiny-model", "--steps-per-epoch", "1",
+              "--batch-size", "2", "--image-size", "64", "-p", out,
+              "--workers", "0", "--dtype", "float32"]
+    assert ttrain.main(common + ["--epochs", "1"]) == 0
+    assert ttrain.main(common + ["--epochs", "2", "--resume", "--swa",
+                                 "--swa-freq", "1", "--feed", "compact-u8"]) == 0
+    saved = torch.load(os.path.join(out, "pth", "epoch_1.pth"), weights_only=True)
+    assert saved["step"] == 2 and saved["swa_count"] == 1
+    swa = torch.load(os.path.join(out, "pth_swa", "epoch_1.pth"), weights_only=True)
+    # the published model is the average (one snapshot: the epoch-1 weights)
+    for k, v in swa["weights"].items():
+        if k in saved["swa_params"]:
+            assert torch.equal(v, saved["swa_params"][k]), k
+    assert open(os.path.join(out, "log")).read().count("Epoch") == 2
+
+
+def test_train_cli_needs_a_card_and_refuses_unported_modes(monkeypatch, tmp_path):
+    from improved_body_parts_tpu_torch.apps import train as ttrain
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        ttrain.main(["--tiny-model", "-p", str(tmp_path)])
+    for flag in (["--model", "ae"], ["--multihost"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttrain.main(["--device", "cpu", "-p", str(tmp_path)] + flag)

@@ -1,8 +1,10 @@
 """The port keeps its own copies of the JAX package's jax-free modules
 (``configs``, ``ops.group``, ``ops.group_cpp`` with ``csrc/grouping.cpp``,
-``data.heatmaps``, ``data.synthetic``, ``utils.common``, ``utils.oks_eval``,
+``data.heatmaps``, ``data.synthetic`` with the trainer's feeds,
+``data.prefetch``, ``data.pipeline``, ``utils.common``, ``utils.oks_eval``,
 ``infer.serving``). Each copy is held against its original on the same
-numpy inputs, exactly."""
+numpy inputs, exactly; the compact feed's bf16 arrays are torch tensors in
+the port and ``ml_dtypes`` arrays in the JAX package, compared as fp32."""
 
 import dataclasses
 
@@ -11,6 +13,8 @@ import pytest
 
 from improved_body_parts_tpu import configs as jconfigs
 from improved_body_parts_tpu.data import heatmaps as jheatmaps
+from improved_body_parts_tpu.data import pipeline as jpipeline
+from improved_body_parts_tpu.data import prefetch as jprefetch
 from improved_body_parts_tpu.data import synthetic as jsynthetic
 from improved_body_parts_tpu.infer import serving as jserving
 from improved_body_parts_tpu.ops import group as jgroup
@@ -19,7 +23,7 @@ from improved_body_parts_tpu.utils import common as jcommon
 from improved_body_parts_tpu.utils import oks_eval as joks_eval
 from improved_body_parts_tpu_torch import configs
 from improved_body_parts_tpu_torch.apps.evaluate import synthetic_coco
-from improved_body_parts_tpu_torch.data import heatmaps, synthetic
+from improved_body_parts_tpu_torch.data import heatmaps, pipeline, prefetch, synthetic
 from improved_body_parts_tpu_torch.infer import serving
 from improved_body_parts_tpu_torch.ops import group, group_cpp
 from improved_body_parts_tpu_torch.utils import common, oks_eval
@@ -213,3 +217,107 @@ def test_pipelined_server_matches(batch, depth):
     for (ka, sa), (kb, sb) in zip(*got):
         np.testing.assert_array_equal(ka, kb)
         np.testing.assert_array_equal(sa, sb)
+
+
+# ---------------------------------------------------------------------------
+# the trainer's feeds: synthetic compact samples, batches, prefetch, h5
+# ---------------------------------------------------------------------------
+
+def _as_np(x):
+    """A torch tensor or an (ml_dtypes) numpy array -> numpy, bf16 as fp32."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
+def _assert_batches_equal(mine, ref):
+    mine, ref = list(mine), list(ref)
+    assert len(mine) == len(ref) > 0
+    for a, b in zip(mine, ref):
+        for x, y in zip((a[0], a[1], *(a[2] if isinstance(a[2], tuple) else (a[2],))),
+                        (b[0], b[1], *(b[2] if isinstance(b[2], tuple) else (b[2],)))):
+            x, y = _as_np(x), _as_np(y)
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("image_u8", [False, True], ids=["bf16", "u8"])
+def test_synthetic_get_compact_matches(image_u8):
+    """The bf16 rounding done by torch equals ml_dtypes' (nearest even)."""
+    import torch
+    kw = dict(length=4, seed=5, image_size=64)
+    mine = synthetic.SyntheticDataset(configs.get_config("Canonical"), **kw)
+    ref = jsynthetic.SyntheticDataset(jconfigs.get_config("Canonical"), **kw)
+    for idx in range(3):
+        a, b = mine.get_compact(idx, image_u8=image_u8), ref.get_compact(idx, image_u8=image_u8)
+        assert a[0].dtype == (torch.uint8 if image_u8 else torch.bfloat16)
+        for x, y in zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2])):
+            np.testing.assert_array_equal(_as_np(x), _as_np(y))
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_synthetic_batches_match(compact):
+    kw = dict(length=16, seed=2, image_size=64)
+    args = dict(batch_size=4, steps=2, seed=7, rank=1, world=2, compact=compact,
+                max_people=5)
+    _assert_batches_equal(
+        synthetic.SyntheticDataset(configs.get_config("Canonical"), **kw).batches(**args),
+        jsynthetic.SyntheticDataset(jconfigs.get_config("Canonical"), **kw).batches(**args))
+
+
+@pytest.mark.parametrize("workers,compact", [(1, False), (3, True)])
+def test_prefetching_loader_matches(workers, compact):
+    kw = dict(length=16, seed=3, image_size=64)
+    args = dict(batch_size=4, steps=3, seed=11, compact=compact, image_u8=compact)
+    mine = prefetch.PrefetchingLoader(
+        synthetic.SyntheticDataset(configs.get_config("Canonical"), **kw),
+        num_workers=workers)
+    ref = jprefetch.PrefetchingLoader(
+        jsynthetic.SyntheticDataset(jconfigs.get_config("Canonical"), **kw),
+        num_workers=workers)
+    assert len(mine) == len(ref) == 16
+    _assert_batches_equal(mine.batches(**args), ref.batches(**args))
+
+
+def _write_tiny_h5(path):
+    """The reference layout, as tests/test_pipeline.py builds it."""
+    import json
+
+    import h5py
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 255, (240, 320, 3), np.uint8)
+    mask_miss = np.full((240, 320), 255, np.uint8)
+    mask_miss[:40, :60] = 0
+    mask_all = np.zeros((240, 320), np.uint8)
+    mask_all[60:200, 100:220] = 255
+    joints = np.zeros((1, 17, 3))
+    joints[0, :, 2] = 2.0
+    joints[0, 0] = [160.0, 80.0, 1.0]
+    joints[0, 5] = [180.0, 110.0, 1.0]
+    joints[0, 6] = [140.0, 110.0, 1.0]
+    meta = {"image": "000000000001", "joints": joints.tolist(),
+            "objpos": [[160.0, 120.0]], "scale_provided": [140.0 / 512]}
+    with h5py.File(path, "w") as f:
+        f.create_group("images").create_dataset("000000000001", data=img)
+        f.create_group("masks").create_dataset(
+            "000000000001", data=np.stack([mask_miss, mask_all], axis=2))
+        ds = f.create_group("dataset").create_dataset("0000000", data=json.dumps(meta))
+        ds.attrs["meta"] = json.dumps(meta)
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_coco_h5_dataset_matches(tmp_path, compact):
+    path = str(tmp_path / "tiny.h5")
+    _write_tiny_h5(path)
+    cfg = dataclasses.replace(configs.get_config("Canonical"), width=128, height=128)
+    jcfg = dataclasses.replace(jconfigs.get_config("Canonical"), width=128, height=128)
+    mine = pipeline.CocoH5Dataset(path, cfg, augment=True)
+    ref = jpipeline.CocoH5Dataset(path, jcfg, augment=True)
+    assert len(mine) == len(ref) == 1
+    args = dict(batch_size=2, steps=2, seed=4, compact=compact, image_u8=compact)
+    _assert_batches_equal(mine.batches(**args), ref.batches(**args))
+    a, b = pipeline.AugmentSelection(flip=True, degree=10.0, scale=1.2), \
+        jpipeline.AugmentSelection(flip=True, degree=10.0, scale=1.2)
+    np.testing.assert_array_equal(a.affine((100.0, 80.0), 0.4, cfg)[0],
+                                  b.affine((100.0, 80.0), 0.4, jcfg)[0])
