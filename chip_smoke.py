@@ -15,7 +15,17 @@ operations), one step with remat, a step of the tiny model on the card
 against the CPU (fp32 with frozen BN, float64 in train mode), the
 abnormal-loss rollback, checkpoint resume, a trained
 checkpoint served through ``apps.evaluate.build_predictor``, and a falling
-loss.
+loss; then the model variants (FinalAttention and Independent at full width
+served through ``apps.demo_image.build_predictor``, AEPoseNet trained at
+Canonical widths through the ``apps.train`` path, a tiny fp32 forward of
+each variant on the card against the CPU); then int8: ``int8_conv`` bit for
+bit against its plain version on an edge grid and at every distinct conv
+shape of a Canonical int8 ``predict_maps`` of 16 frames, timed beside its
+bound, the plain version and the unfold + ``torch._int_mm`` route; the
+Canonical post-training quantization (fold, calibrate on 8 synthetic
+scenes), the int8 maps against the bf16 folded maps, the int8 network and
+``PipelinedServer`` with ``int8_conv`` launched once per conv block per
+batch, and the int8 ``.pth`` served from the file.
 
     python3 chip_smoke.py
 
@@ -24,7 +34,9 @@ Phases print on earlier lines; any failure raises and the exit code is not
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launch count in the serving run and per batch, its error against the
 plain version, its times (input warm in L2 and cold), its bound, the plain
-version's time and, for ``fused_peaks``, the unfused route's. Weights are
+version's time and, for ``fused_peaks``, the unfused route's; for
+``int8_conv`` the sums over one batch's launches, with each shape's row
+under ``at_shapes``. Weights are
 random, drawn from a seed. Imports no jax and nothing of the JAX package.
 """
 
@@ -781,6 +793,450 @@ def training(device, smi, config_name: str = "Canonical") -> None:
     print(json.dumps({"training": line}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the model variants
+# ---------------------------------------------------------------------------
+
+VARIANT_REQUESTS = 16
+AE_STEPS = 4
+TINY_VARIANTS = (("cross_stack=False", dict(cross_stack=False)),
+                 ("extra_attention", dict(extra_attention=True)),
+                 ("Independent", dict(cross_stack=False, legacy_blocks=True)),
+                 ("AEPoseNet", None))
+
+
+def serve_requests(pred, requests, depth, what):
+    """``requests`` through ``PipelinedServer(batch 8, depth)``; checks the
+    results' shapes; returns frames/s end to end."""
+    from improved_body_parts_tpu_torch.infer.serving import PipelinedServer
+    serve = PipelinedServer(pred, batch_size=BATCH, depth=depth, use_cpp=True)
+    try:
+        t0 = time.perf_counter()
+        futs = [serve.submit(im) for im in requests]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+    finally:
+        serve.close()
+    if len(results) != len(requests) or any(k.shape[1:] != (18, 3) for k, _ in results):
+        raise AssertionError(f"{what}: serving returned malformed results")
+    return len(requests) / wall
+
+
+def variants(frames, requests, device, smi,
+             names=("FinalAttention", "Independent")) -> dict:
+    """Phase 9: FinalAttention and Independent at full width served through
+    ``apps.demo_image.build_predictor``; AEPoseNet trained at Canonical
+    widths through the ``apps.train`` path; a tiny fp32 forward of each
+    variant on the card against the CPU."""
+    import argparse
+
+    from improved_body_parts_tpu_torch import train_lib
+    from improved_body_parts_tpu_torch.apps.demo_image import build_predictor
+    from improved_body_parts_tpu_torch.apps.train import build_model, staged_batches
+    from improved_body_parts_tpu_torch.configs import ModelConfig, get_config
+    from improved_body_parts_tpu_torch.data.prefetch import PrefetchingLoader
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+    from improved_body_parts_tpu_torch.models.ae_pose import AEPoseNet
+    from improved_body_parts_tpu_torch.models.imhn import create_model
+    from improved_body_parts_tpu_torch.ops import kernels
+
+    line = {}
+    imgs = torch.from_numpy(frames).to(device).float() / 255.0
+    for name in names:
+        pred = build_predictor("", name, device=device)      # reference init
+        n_params = sum(p.numel() for p in pred.model.parameters())
+        with torch.inference_mode():
+            pred.predict_batch(frames, use_cpp=True)           # warm-up
+            ms = device_ms(lambda: pred._flip_avg_maps(imgs), runs=5)
+        kernels.reset_launch_counts()
+        fps = serve_requests(pred, requests[:VARIANT_REQUESTS], 2, name)
+        if kernels.nms.launches == 0:
+            raise AssertionError(f"{name}: serving did not launch nms")
+        print(f"{name} ({type(pred.model).__name__}, {n_params / 1e6:.1f}M "
+              f"parameters): bf16 forward of {BATCH} x 512^2 + flips {ms:.1f} ms "
+              f"per batch; {VARIANT_REQUESTS} requests served (batch {BATCH}, "
+              f"depth 2) at {fps:.2f} frames/s; nms launches "
+              f"{kernels.nms.launches} ({smi})", flush=True)
+        line[name] = dict(ms=ms, frames_per_s=fps, params=n_params)
+        del pred
+        torch.cuda.empty_cache()
+
+    # AEPoseNet at Canonical widths: apps.train's model, feed and staging
+    config = get_config("Canonical")
+    args = argparse.Namespace(tiny_model=False, remat=False, model="ae",
+                              dtype="bfloat16")
+    _, model = build_model(args, config, device)
+    state = train_lib.create_train_state(model, config.train)
+    step = train_lib.make_train_step(model, config, compact_gt=True)
+    loader = PrefetchingLoader(SyntheticDataset(config, length=32), num_workers=6)
+    batches = staged_batches(loader.batches(TRAIN_BATCH, AE_STEPS, seed=2,
+                                            compact=True, image_u8=True),
+                             device, depth=2)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(state, *batch, config.train.learning_rate)["loss"])
+    torch.cuda.synchronize()
+    ae_ms = (time.perf_counter() - t0) / (AE_STEPS - 1) * 1e3
+    losses = torch.stack(losses).float().cpu()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"AEPoseNet: non-finite loss {losses.tolist()}")
+    print(f"AEPoseNet (Canonical widths, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+          f"parameters), 512² batch {TRAIN_BATCH}, compact-u8 feed through the "
+          f"loader and staging: {AE_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses.tolist()]}, {ae_ms:.1f} ms a step "
+          f"after the first (host clock), peak {peak:.2f} GiB ({smi})", flush=True)
+    line["AEPoseNet_train"] = dict(step_ms=ae_ms, peak_gib=peak,
+                                   losses=losses.tolist())
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # tiny fp32 forward of each variant, card against CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(np.random.RandomState(SEED).rand(2, 64, 64, 3).astype(np.float32))
+    for name, flags in TINY_VARIANTS:
+        g = torch.Generator().manual_seed(SEED)
+        kw = dict(compute_dtype=torch.float32, generator=g)
+        if flags is None:
+            host = AEPoseNet(ModelConfig(nstack=2, inp_dim=32, increase=16), **kw)
+        else:
+            host = create_model(ModelConfig(nstack=2, inp_dim=32, increase=16, **flags),
+                                **kw)
+        fan_in_init(host, g)
+        dev = copy.deepcopy(host).to(device)
+        with torch.inference_mode():
+            want, got = host(x), dev(x.to(device))
+        scale = max(w.abs().max().item() for st in want for w in st)
+        err = max((a.cpu() - b).abs().max().item()
+                  for gs, ws in zip(got, want) for a, b in zip(gs, ws))
+        print(f"tiny {name} fp32 forward (nstack 2, inp_dim 32, 2 x 64²), card vs "
+              f"CPU at every output: max abs err {err:.3e} (outputs up to "
+              f"{scale:.3f}; tolerance 1e-3 x that)", flush=True)
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"tiny {name}: the card disagrees with the CPU")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 10: int8 post-training quantization and the int8 conv kernel
+# ---------------------------------------------------------------------------
+
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor-core rate
+
+
+def _ceil8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def int8_library_route(w, bias, w_scale, a_scale, stride, pad, dil, relu):
+    """``x -> int8_conv(x, w, ...)`` computed by PyTorch calls: quantize,
+    ``F.unfold`` (im2col: every activation copied k*k times) in fp16 (the
+    integers are exact), then ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32)
+    on K and N padded to multiples of 8, then the same epilogue. Timed as
+    the yardstick ``library_ms``; the port never calls it."""
+    import torch.nn.functional as F
+    cout, k, _, cin = w.shape
+    K, Kp, Np = cin * k * k, max(_ceil8(cin * k * k), 24), _ceil8(cout)
+    B = torch.zeros((Kp, Np), dtype=torch.int8, device=w.device)
+    B[:K, :cout] = w.permute(3, 1, 2, 0).reshape(K, cout)      # (ci, ky, kx) rows
+    scale = a_scale * w_scale
+
+    def route(x):
+        n, h, wd, _ = x.shape
+        xq = torch.clamp(torch.round(x.float() / a_scale), -127, 127).half()
+        cols = F.unfold(xq.permute(0, 3, 1, 2), k, dilation=dil, padding=pad,
+                        stride=stride)                        # (n, K, L)
+        ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
+        wo = (wd + 2 * pad - dil * (k - 1) - 1) // stride + 1
+        A = torch.zeros((n * ho * wo, Kp), dtype=torch.int8, device=x.device)
+        A[:, :K] = cols.transpose(1, 2).reshape(n * ho * wo, K)
+        acc = torch._int_mm(A, B)[:, :cout]
+        y = (acc.float() * scale + bias).to(x.dtype)
+        y = F.leaky_relu(y, 0.01) if relu else y
+        return y.reshape(n, ho, wo, cout)
+    return route
+
+
+def int8_edge_grid(kernels, device) -> tuple:
+    """int8_conv against its plain version, bit for bit, on kernel 1/3/7 x
+    stride 1/2 x dilation 1/3/5 x Cin 3/50/64 (K not a multiple of 32),
+    Cout 50 and 130, bf16 and fp32, with rounding ties and clipped
+    outliers, plus the extreme operand (every product 127 * 127) at the
+    largest K (3x3 on 768 channels, 8x8 maps of 16 frames) and a 1x1
+    map."""
+    n, worst = 0, 0.0
+    g = torch.Generator().manual_seed(SEED)
+    a_scale = torch.tensor(2.0 ** -5, device=device)
+    for k, dil in ((1, 1), (3, 1), (3, 3), (3, 5), (7, 1), (7, 3), (7, 5)):
+        for stride in (1, 2):
+            for cin in (3, 50, 64):
+                cout = 130 if cin == 64 else 50
+                x = torch.randn((2, 19, 13, cin), generator=g) * 1.5
+                ties = torch.rand(x.shape, generator=g) < 0.2
+                x = torch.where(ties, (torch.randint(-130, 130, x.shape, generator=g)
+                                       + 0.5) * 2.0 ** -5, x).to(device)
+                w = torch.randint(-127, 128, (cout, k, k, cin), generator=g,
+                                  dtype=torch.int8).to(device)
+                w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(device)
+                bias = (torch.randn(cout, generator=g) * 0.1).to(device)
+                pad = dil * (k - 1) // 2
+                for dt in (torch.bfloat16, torch.float32):
+                    relu = (k + stride + dil + n) % 2 == 0
+                    args = (x.to(dt), w, bias, w_scale, a_scale, stride, pad, dil, relu)
+                    got, want = kernels.int8_conv(*args), kernels.int8_conv_plain(*args)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"int8_conv k={k} s={stride} d={dil} "
+                                             f"cin={cin} {dt} differs")
+                    worst = max(worst, max_abs_err([got], [want.contiguous()]))
+                    n += 1
+    for shape in ((16, 8, 8, 768, 768, 3), (4, 1, 1, 32, 16, 3)):
+        b, h, wd, cin, cout, k = shape
+        x = (torch.rand((b, h, wd, cin), generator=g) + 1.0).to(device)
+        w = torch.full((cout, k, k, cin), 127, dtype=torch.int8, device=device)
+        args = (x.bfloat16(), w, torch.zeros(cout, device=device),
+                torch.full((cout,), 1e-6, device=device), torch.tensor(1e-3, device=device),
+                1, 1, 1, False)
+        got, want = kernels.int8_conv(*args), kernels.int8_conv_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_conv extreme operand {shape} differs")
+        n += 1
+    return n, worst
+
+
+def int8_conv_shapes(qmodel, both):
+    """Every distinct conv of one int8 ``predict_maps(both)``: {key: [count,
+    module, NHWC input, relu]}, in first-call order (hooks, kernels run)."""
+    from improved_body_parts_tpu_torch.models.imhn import QConv2d
+    found = {}
+
+    def hook(mod, args):
+        x, relu = args[0], bool(args[1])
+        key = (tuple(x.shape), mod.k, mod.stride, mod.padding, mod.dilation,
+               mod.outs, relu)
+        if key in found:
+            found[key][0] += 1
+        else:
+            found[key] = [1, mod, x.permute(0, 2, 3, 1).contiguous().clone(), relu]
+
+    handles = [m.register_forward_pre_hook(hook) for m in qmodel.modules()
+               if isinstance(m, QConv2d)]
+    try:
+        with torch.inference_mode():
+            qmodel.predict_maps(both)
+    finally:
+        for h in handles:
+            h.remove()
+    return found
+
+
+def int8_shape_rows(kernels, found):
+    """At each distinct conv: the kernel against its plain version (bit for
+    bit) and its times beside the bound, the plain version and the library
+    route."""
+    rows, worst = [], 0.0
+    for key, (count, mod, x, relu) in found.items():
+        w = mod.weight_q.view(mod.outs, mod.k, mod.k, mod.ins)
+        args = (w, mod.bias, mod.w_scale, mod.a_scale, mod.stride, mod.padding,
+                mod.dilation, relu)
+        got = kernels.int8_conv(x, *args)
+        want = kernels.int8_conv_plain(x, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_conv differs from its plain version at {key}")
+        worst = max(worst, max_abs_err([got], [want.contiguous()]))
+        lib = int8_library_route(*args)
+        try:
+            lib_equal = torch.equal(lib(x), got)
+        except RuntimeError as e:      # a yardstick only: note it and go on
+            print(f"unfold+_int_mm route refused at {key}: {e}", flush=True)
+            lib = lib_equal = None
+        n, h, wd, cin = x.shape
+        m = got.shape[0] * got.shape[1] * got.shape[2]
+        ops = 2 * m * mod.outs * cin * mod.k * mod.k
+        nbytes = x.nbytes + w.nbytes + got.nbytes + 3 * mod.outs * 4 + 4
+        row = dict(shape=list(x.shape), k=mod.k, stride=mod.stride,
+                   dilation=mod.dilation, cout=mod.outs, relu=relu,
+                   launches_per_batch=count,
+                   ms=device_ms(lambda: kernels.int8_conv(x, *args), runs=10),
+                   ms_cold=device_ms(lambda: kernels.int8_conv(x, *args), runs=10,
+                                     cold=True),
+                   plain_ms=device_ms(lambda: kernels.int8_conv_plain(x, *args), runs=3),
+                   library_ms=None if lib is None else device_ms(lambda: lib(x), runs=5),
+                   library_equal=lib_equal,
+                   ops_bound_ms=ops / INT8_OPS_PER_S * 1e3,
+                   bytes_bound_ms=bound_ms(nbytes))
+        row["bound_ms"] = max(row["ops_bound_ms"], row["bytes_bound_ms"])
+        row["bound_by"] = ("operations" if row["ops_bound_ms"] >= row["bytes_bound_ms"]
+                           else "bytes")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"int8_conv {tuple(x.shape)} k{mod.k} s{mod.stride} d{mod.dilation} "
+              f"-> {mod.outs} x{count}: {row['ms']:.4f} ms warm / "
+              f"{row['ms_cold']:.4f} cold, bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}, share {row['share_of_bound']:.3f}), plain "
+              f"{row['plain_ms']:.3f}, unfold+_int_mm {row['library_ms']}"
+              f"{'' if lib_equal else ' (NOT equal)'}", flush=True)
+    return rows, worst
+
+
+def corr_err(got: torch.Tensor, want: torch.Tensor):
+    g, w = got.double().flatten(), want.double().flatten()
+    corr = torch.corrcoef(torch.stack([g, w]))[0, 1].item()
+    return corr, (g - w).abs().max().item() / (w.max() - w.min()).item()
+
+
+def int8(model_cpu, config, frames, requests, device, smi, net_ms,
+         config_name: str = "Canonical") -> tuple:
+    """Phase 10: Canonical PTQ (fold, calibrate on 8 synthetic scenes,
+    quantize), int8_conv at every distinct conv shape of its predict_maps
+    and on the edge grid, the int8 maps against the bf16 folded maps, the
+    int8 network and PipelinedServer, and the int8 .pth served from file."""
+    import os
+    import tempfile
+
+    from improved_body_parts_tpu_torch.apps.demo_image import build_predictor
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+    from improved_body_parts_tpu_torch.infer.predict import Predictor
+    from improved_body_parts_tpu_torch.models import quantize as qz
+    from improved_body_parts_tpu_torch.ops import kernels
+
+    n_edge, edge_err = int8_edge_grid(kernels, device)
+    print(f"int8_conv edge grid: {n_edge} cases bit-identical to the plain "
+          "version (k 1/3/7 x stride 1/2 x dilation 1/3/5 x Cin 3/50/64, "
+          "bf16 and fp32, ties and clipped outliers; the extreme operand at "
+          "K 6,912 and on a 1x1 map)", flush=True)
+
+    model = copy.deepcopy(model_cpu).to(device, memory_format=torch.channels_last)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calib_ds = SyntheticDataset(config, length=8, seed=1234)
+    calib_imgs = [np.stack([calib_ds[i][0] for i in range(b * 4, b * 4 + 4)])
+                  for b in range(2)]
+    t_data = time.perf_counter() - t0
+    folded = qz.fold_conv_bn(model)
+    calib = qz.make_quant_model(config.model, "calib", device, torch.bfloat16)
+    calib.load_state_dict(folded, strict=True)
+    stats = qz.calibrate(calib, calib_imgs)
+    qmodel = qz.make_quant_model(config.model, "int8", device, torch.bfloat16)
+    qmodel.load_state_dict(qz.build_quantized(folded, stats), strict=True)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    del model, folded
+    print(f"Canonical PTQ: 8 synthetic scenes rendered in {t_data:.2f} s; fold + "
+          f"calibrate (2 batches of 4, bf16) + quantize: {ptq_s:.2f} s in all; "
+          f"{qz.count_int8_convs(qmodel)} int8 conv blocks", flush=True)
+
+    imgs = torch.from_numpy(frames).to(device).float() / 255.0
+    both = torch.cat([imgs, imgs.flip(2)], dim=0)             # 8 frames + flips
+    found = int8_conv_shapes(qmodel, both)
+    n_convs = sum(v[0] for v in found.values())
+    print(f"int8 predict_maps of {both.shape[0]} x {both.shape[1]}^2 runs {n_convs} conv blocks "
+          f"in {len(found)} distinct shapes", flush=True)
+    rows, shape_err = int8_shape_rows(kernels, found)
+    del found
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        q_maps = qmodel.predict_maps(both)
+        f_maps = calib.predict_maps(both)
+    corr, err = corr_err(q_maps, f_maps)
+    print(f"int8 predict_maps of {both.shape[0]} x {both.shape[1]}^2 against the bf16 folded maps: corr "
+          f"{corr:.6f}, max error {err:.4f} of the span (JAX's own bound: corr > "
+          f"0.98, < 0.15)", flush=True)
+    if not (torch.isfinite(q_maps).all() and corr > 0.98 and err < 0.15):
+        raise AssertionError("the int8 maps do not track the folded bf16 maps")
+    del calib, q_maps, f_maps
+    torch.cuda.empty_cache()
+
+    pred = Predictor(qmodel, config, device=device)
+    with torch.inference_mode():
+        pred.predict_batch(frames, use_cpp=True)             # warm-up
+        int8_ms = device_ms(lambda: pred._flip_avg_maps(imgs), runs=5)
+    print(f"int8 network: {int8_ms:.1f} ms per batch of {BATCH} x 512^2 + flips "
+          f"against {net_ms:.1f} ms for the bf16 network in phase 3 "
+          f"({net_ms / int8_ms:.2f}x; {smi})", flush=True)
+
+    calls = [0]
+    predict_maps = qmodel.predict_maps
+
+    def counted(x):
+        calls[0] += 1
+        return predict_maps(x)
+    qmodel.predict_maps = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    fps = serve_requests(pred, requests, DEPTH, "int8")
+    torch.cuda.synchronize()
+    launches = kernels.int8_conv.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del qmodel.predict_maps
+    print(f"int8 PipelinedServer (batch {BATCH}, depth {DEPTH}): {len(requests)} "
+          f"requests at {fps:.2f} frames/s end to end; int8_conv launches "
+          f"{launches} = {n_convs} conv blocks x {calls[0]} batches; nms launches "
+          f"{kernels.nms.launches}; peak {peak:.2f} GiB ({smi})", flush=True)
+    if launches != n_convs * calls[0] or calls[0] == 0 or kernels.nms.launches == 0:
+        raise AssertionError("int8 serving did not launch int8_conv once per conv "
+                             "block per batch")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "canonical_int8.pth")
+        qz.save_quantized(path, qmodel)
+        mib = os.path.getsize(path) / 2 ** 20
+        fp32_mib = sum(v.numel() * 4 for v in model_cpu.state_dict().values()
+                       if v.is_floating_point()) / 2 ** 20
+        kernels.reset_launch_counts()
+        served = build_predictor(path, config_name, quantize="int8", device=device)
+        results = served.predict_batch(frames, use_cpp=True)
+        torch.cuda.synchronize()
+        if (len(results) != BATCH or kernels.int8_conv.launches != n_convs
+                or kernels.nms.launches == 0):
+            raise AssertionError("the int8 .pth did not serve through int8_conv")
+        print(f"int8 .pth: {mib:.1f} MiB (fp32 weights {fp32_mib:.1f} MiB, "
+              f"{fp32_mib / mib:.2f}x); served from the file through "
+              f"apps.demo_image.build_predictor: {kernels.int8_conv.launches} "
+              f"int8_conv launches for one batch", flush=True)
+        del served
+    del pred, qmodel
+    torch.cuda.empty_cache()
+
+    def total(f):
+        if any(r[f] is None for r in rows):
+            return None
+        return sum(r[f] * r["launches_per_batch"] for r in rows)
+    kernel_row = dict(
+        name="int8_conv", route="cuda",
+        source="improved_body_parts_tpu_torch/csrc/int8_conv.cu",
+        replaces="improved_body_parts_tpu/models/imhn.py:90",
+        launches=launches, launches_per_batch=n_convs,
+        max_abs_err=max(edge_err, shape_err),
+        per="one int8 predict_maps of 16 x 512^2 (8 frames + flips): the sum "
+            "over its conv launches",
+        ms=total("ms"), ms_cold=total("ms_cold"), plain_ms=total("plain_ms"),
+        bound_ms=total("bound_ms"), library_ms=total("library_ms"),
+        bound_by=("operations" if total("ops_bound_ms") >= total("bytes_bound_ms")
+                  else "bytes"))
+    kernel_row["share_of_bound"] = kernel_row["bound_ms"] / kernel_row["ms"]
+    print(f"int8_conv over one batch's {n_convs} launches: {kernel_row['ms']:.2f} ms "
+          f"warm / {kernel_row['ms_cold']:.2f} cold, bound {kernel_row['bound_ms']:.2f} "
+          f"ms ({kernel_row['bound_by']}, share {kernel_row['share_of_bound']:.3f}), "
+          f"plain {kernel_row['plain_ms']:.1f} ms, unfold+_int_mm "
+          f"{kernel_row['library_ms']} ms ({smi})", flush=True)
+    kernel_row["at_shapes"] = rows
+    line = dict(ptq_s=ptq_s, corr=corr, err_of_span=err, int8_ms=int8_ms,
+                bf16_ms=net_ms, frames_per_s=fps, peak_gib=peak, pth_mib=mib,
+                convs_per_batch=n_convs, distinct_shapes=len(rows))
+    return kernel_row, line
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -970,6 +1426,18 @@ def main() -> int:
     # -- 8: training ------------------------------------------------------------------
     phase(f"8 training, Canonical 512², batch {TRAIN_BATCH}")
     training(device, smi)
+
+    # -- 9: the model variants -----------------------------------------------------------
+    phase("9 variants: FinalAttention and Independent served, AEPoseNet trained, "
+          "tiny variants card vs CPU")
+    variant_line = variants(frames, requests, device, smi)
+
+    # -- 10: int8 ----------------------------------------------------------------------
+    phase("10 int8: PTQ of Canonical, int8_conv vs plain, int8 serving")
+    int8_row, int8_line = int8(model_cpu, config, frames, requests, device, smi,
+                               net_ms)
+    kernel_rows.append(int8_row)
+    print(json.dumps({"variants": variant_line, "int8": int8_line}), flush=True)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

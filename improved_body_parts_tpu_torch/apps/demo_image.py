@@ -32,7 +32,8 @@ from improved_body_parts_tpu_torch.configs import (
 )
 from improved_body_parts_tpu_torch.ops import group, group_cpp
 from improved_body_parts_tpu_torch.infer.predict import Predictor
-from improved_body_parts_tpu_torch.models.imhn import PoseNet
+from improved_body_parts_tpu_torch.models import quantize as qz
+from improved_body_parts_tpu_torch.models.imhn import create_model
 from improved_body_parts_tpu_torch.ops.limbs import (
     connections_to_numpy, score_connections, select_connections,
 )
@@ -58,15 +59,29 @@ def build_predictor(checkpoint: str, config: Union[str, CanonicalConfig],
                     refine: str = "bicubic", *, device: torch.device,
                     quantize: str = "", dtype: torch.dtype = torch.bfloat16,
                     seed: int = 0) -> Predictor:
-    """A ``Predictor`` over ``PoseNet`` on ``device``, with the weights of a
-    reference-layout ``.pth`` (``utils/checkpoint.load_reference_pth``:
-    a released reference file or JAX ``export_to_torch_state_dict``
-    output), or the reference init from ``seed`` when ``checkpoint`` is
-    empty or missing (as the JAX demo falls back to a fresh init)."""
-    if quantize:
-        raise NotImplementedError(
-            f"--quantize {quantize}: int8 inference is not ported yet")
+    """A ``Predictor`` over the config's network (``create_model``) on
+    ``device``, with the weights of a reference-layout ``.pth``
+    (``utils/checkpoint.load_reference_pth``: a released reference file or
+    JAX ``export_to_torch_state_dict`` output), or the reference init from
+    ``seed`` when ``checkpoint`` is empty or missing (as the JAX demo falls
+    back to a fresh init).
+
+    ``quantize="int8"`` serves the int8 ``PoseNet`` (JAX demo_image.py:
+    41-77): an int8 export (``models/quantize.save_quantized``) given as
+    ``checkpoint`` loads directly; otherwise the fp model is folded and
+    calibrated on ``SyntheticDataset(config, length=8, seed=1234)`` in two
+    batches of 4."""
+    if quantize not in ("", "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
     cfg = get_config(config) if isinstance(config, str) else config
+    if quantize and cfg.model.legacy_blocks:
+        raise ValueError(f"--quantize {quantize}: quantization supports the "
+                         "live PoseNet only (not legacy_blocks)")
+    if quantize and checkpoint and qz.is_quantized_checkpoint(checkpoint):
+        model = qz.load_quantized(cfg.model, checkpoint, device=device,
+                                  compute_dtype=dtype)
+        print(f"loaded int8 quantized checkpoint: {checkpoint}")
+        return Predictor(model, cfg, device=device, refine=refine)
     if checkpoint and os.path.isdir(checkpoint):
         raise ValueError(
             f"{checkpoint} is a directory (an orbax checkpoint?); reading "
@@ -74,7 +89,7 @@ def build_predictor(checkpoint: str, config: Union[str, CanonicalConfig],
             "improved_body_parts_tpu.utils.checkpoint.export_to_torch_state_dict "
             "and torch.save, then pass the .pth")
     g = torch.Generator().manual_seed(seed)
-    model = PoseNet(cfg.model, compute_dtype=dtype, generator=g)
+    model = create_model(cfg.model, compute_dtype=dtype, generator=g)
     if checkpoint and os.path.exists(checkpoint):
         model.load_state_dict(load_reference_pth(checkpoint), strict=True)
         print(f"loaded checkpoint: {checkpoint}")
@@ -84,6 +99,17 @@ def build_predictor(checkpoint: str, config: Union[str, CanonicalConfig],
     fmt = (torch.channels_last if torch.device(device).type == "cuda"
            else torch.contiguous_format)
     model = model.to(device, memory_format=fmt)
+    if quantize:
+        from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+        t0 = time.time()
+        # calibrate on rendered multi-person scenes at the serving
+        # resolution (per-tensor activation scales; models/quantize.py)
+        calib_ds = SyntheticDataset(cfg, length=8, seed=1234)
+        calib = [np.stack([calib_ds[i][0] for i in range(b * 4, b * 4 + 4)])
+                 for b in range(2)]
+        model = qz.quantize_model(model, calib)
+        print(f"int8 PTQ: folded BN + calibrated on "
+              f"{sum(len(b) for b in calib)} scenes in {time.time() - t0:.1f}s")
     return Predictor(model, cfg, device=device, refine=refine)
 
 
@@ -174,7 +200,11 @@ def main(argv=None) -> int:
     parser.add_argument("--rotation-search", type=float, nargs="*", default=[0.0],
                         help="rotation TTA angles in degrees")
     parser.add_argument("--quantize", default="", choices=["", "int8"],
-                        help="int8 forward (not ported: raises)")
+                        help="post-training int8 quantization of the forward "
+                             "(models/quantize.py): an int8 export given as "
+                             "--checkpoint loads directly, else BN is folded "
+                             "and the activations calibrated on 8 synthetic "
+                             "scenes")
     parser.add_argument("--synthetic", action="store_true",
                         help="run post-processing on a synthetic scene (no weights needed)")
     parser.add_argument("--ellipse", action="store_true",

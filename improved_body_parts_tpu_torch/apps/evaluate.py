@@ -264,7 +264,8 @@ def main(argv=None) -> int:
                         default=None, metavar="DEG",
                         help="rotation TTA angles (reference INI rotation_search)")
     parser.add_argument("--quantize", default="", choices=["", "int8"],
-                        help="int8 forward (not ported: raises)")
+                        help="post-training int8 quantization of the forward "
+                             "(apps.demo_image.build_predictor)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda, and an error when "
                              "no card is visible; pass cpu to run on the CPU)")

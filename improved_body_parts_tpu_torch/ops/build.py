@@ -37,6 +37,9 @@ _ARGTYPES = {
                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_float, ctypes.c_int, _P],
     "ibp_fused_peaks_max_list_keys": [],
+    # x, w, bias, w_scale, a_scale, out, n, h, w, cin, cout, kh, kw, stride,
+    # pad, dilation, ho, wo, relu, bf16, stream
+    "ibp_int8_conv": [_P, _P, _P, _P, _P, _P] + [ctypes.c_int] * 14 + [_P],
 }
 
 _lock = threading.Lock()

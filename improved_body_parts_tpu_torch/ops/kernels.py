@@ -1,17 +1,22 @@
-"""The port's two hand-written CUDA kernels: wrappers, plain versions and
+"""The port's hand-written CUDA kernels: wrappers, plain versions and
 launch counts.
 
   * ``nms`` (csrc/nms.cu) replaces the TPU kernel
     ``improved_body_parts_tpu/ops/pallas_kernels.py:nms_pallas``.
   * ``fused_peaks`` (csrc/fused_peaks.cu) replaces
     ``pallas_kernels.py:fused_peaks_pallas``.
+  * ``int8_conv`` (csrc/int8_conv.cu) replaces XLA's s8 x s8 -> s32
+    convolution of the int8 forward
+    (``improved_body_parts_tpu/models/imhn.py`` ``ConvBlock(quant="int8")``).
 
-Both are bound by device-memory bytes: each map is read once, and each
-kernel is one launch. The fused kernel streams each channel once and keeps
-no NMS map in memory, only sorted top-P key lists (registers and shared
-memory); the notes at the top of each source say more. Both are pure
-compares, copies and integer arithmetic, so a kernel and its plain version
-agree bit for bit.
+``nms`` and ``fused_peaks`` are bound by device-memory bytes: each map is
+read once, and each kernel is one launch. The fused kernel streams each
+channel once and keeps no NMS map in memory, only sorted top-P key lists
+(registers and shared memory); the notes at the top of each source say
+more. Both are pure compares, copies and integer arithmetic, so a kernel and
+its plain version agree bit for bit. ``int8_conv`` sums integers exactly
+and rounds each float step as its plain version does, so it too agrees bit
+for bit.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (on PyTorch's current stream, no
@@ -41,7 +46,7 @@ def _count(wrapper) -> None:
 
 
 def reset_launch_counts() -> None:
-    for wrapper in (nms, fused_peaks):
+    for wrapper in (nms, fused_peaks, int8_conv):
         wrapper.launches = 0
 
 
@@ -184,3 +189,92 @@ def fused_peaks(heat: torch.Tensor, thre: float = 0.1, max_peaks: int = 32,
 
 
 fused_peaks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: int8 convolution (quantize the input, s8 x s8 -> s32, dequantize)
+# ---------------------------------------------------------------------------
+
+def _conv_out(size: int, k: int, stride: int, padding: int, dilation: int) -> int:
+    return (size + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+
+
+def int8_conv_plain(x: torch.Tensor, weight_q: torch.Tensor, bias: torch.Tensor,
+                    w_scale: torch.Tensor, a_scale: torch.Tensor,
+                    stride: int = 1, padding: int = 0, dilation: int = 1,
+                    relu: bool = False) -> torch.Tensor:
+    """x (N, H, W, Cin) float, weight_q (Cout, kh, kw, Cin) int8, bias and
+    w_scale (Cout,) float32, a_scale 0-d float32 -> (N, Ho, Wo, Cout) in
+    x's type: the JAX int8 ConvBlock's arithmetic in its order,
+    ``clip(round(x_f32 / a_scale), ±127)`` (ties to even), the integer sum,
+    ``acc_f32 * (a_scale * w_scale) + bias``, the cast, LeakyReLU(0.01).
+    The sum is a float64 convolution of the integer-valued tensors, which is
+    exact: |acc| <= 127^2 * kh * kw * Cin < 2^53."""
+    xq = torch.clamp(torch.round(x.float() / a_scale), -127, 127)
+    acc = int8_conv_sums(xq, weight_q, stride, padding, dilation)
+    y = acc.float() * (a_scale * w_scale) + bias
+    y = y.to(x.dtype)
+    return F.leaky_relu(y, 0.01) if relu else y
+
+
+def int8_conv_sums(xq: torch.Tensor, weight_q: torch.Tensor, stride: int = 1,
+                   padding: int = 0, dilation: int = 1) -> torch.Tensor:
+    """The integer part of ``int8_conv_plain``: integer-valued NHWC ``xq``
+    and a (Cout, kh, kw, Cin) kernel -> the (N, Ho, Wo, Cout) int32 sums,
+    zero padded. A float64 convolution, exact below 2^53."""
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                   weight_q.permute(0, 3, 1, 2).double(), None, stride,
+                   padding, dilation)
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def int8_conv(x: torch.Tensor, weight_q: torch.Tensor, bias: torch.Tensor,
+              w_scale: torch.Tensor, a_scale: torch.Tensor, stride: int = 1,
+              padding: int = 0, dilation: int = 1,
+              relu: bool = False) -> torch.Tensor:
+    """``int8_conv_plain`` on the CPU; the CUDA kernel (csrc/int8_conv.cu)
+    on the card, which takes contiguous NHWC float32 or bfloat16
+    activations and a contiguous (Cout, kh, kw, Cin) int8 kernel, and
+    returns a contiguous (N, Ho, Wo, Cout) tensor of x's type."""
+    if x.device.type == "cpu":
+        return int8_conv_plain(x, weight_q, bias, w_scale, a_scale, stride,
+                               padding, dilation, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:
+        raise ValueError("expected (N, H, W, Cin) float32 or bfloat16 "
+                         f"activations, got {x.dtype} {tuple(x.shape)}")
+    n, h, w, cin = x.shape
+    if (weight_q.dtype != torch.int8 or weight_q.dim() != 4
+            or weight_q.shape[3] != cin or weight_q.shape[1] != weight_q.shape[2]):
+        raise ValueError(f"expected a (Cout, k, k, {cin}) int8 kernel, got "
+                         f"{weight_q.dtype} {tuple(weight_q.shape)}")
+    cout, k = weight_q.shape[0], weight_q.shape[1]
+    for name, t, shape in (("bias", bias, (cout,)), ("w_scale", w_scale, (cout,)),
+                           ("a_scale", a_scale, ())):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"expected {name} float32 {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    tensors = (x, weight_q, bias, w_scale)
+    if not all(t.is_contiguous() for t in tensors) or weight_q.device != x.device:
+        raise ValueError("int8_conv needs contiguous tensors on one device")
+    ho = _conv_out(h, k, stride, padding, dilation)
+    wo = _conv_out(w, k, stride, padding, dilation)
+    if min(ho, wo, n, cout) < 1 or n * ho * wo >= 2 ** 31 // 128:
+        raise ValueError(f"unsupported int8_conv shape {tuple(x.shape)} -> "
+                         f"({n}, {ho}, {wo}, {cout})")
+    out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ibp_int8_conv(
+            x.data_ptr(), weight_q.data_ptr(), bias.data_ptr(),
+            w_scale.data_ptr(), a_scale.data_ptr(), out.data_ptr(), n, h, w,
+            cin, cout, k, k, stride, padding, dilation, ho, wo, int(relu),
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {err}")
+    _count(int8_conv)
+    return out
+
+
+int8_conv.launches = 0

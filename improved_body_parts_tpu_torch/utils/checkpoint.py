@@ -6,7 +6,18 @@
     ``improved_body_parts_tpu/utils/checkpoint.map_reference_key``
     (:87-172): conv HWIO -> OIHW, Dense (I, O) -> Linear (O, I), BatchNorm
     ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-    ``running_mean``/``running_var``.
+    ``running_mean``/``running_var``. The reference has no names for the
+    ``extra_attention`` SE layers (Flax ``chattn<t>_s<s>``, here
+    ``chattn.<t>.<s>``) nor for ``IndependentPoseNet`` and ``AEPoseNet``,
+    whose port modules carry the Flax names: ``flax_to_variant_key`` joins
+    the Flax path with dots, writing a Residual's ``conv1``/``conv2``/
+    ``conv3``/``skip`` as the reference's ``convBlock.<i>``/``skipConv.<i>``.
+    A tree with a top-level ``pre0`` (those two families) takes that
+    mapping.
+  * ``qstate_from_flax`` turns the JAX package's int8 param tree
+    (``models/quantize.build_quantized``) into the state_dict of the port's
+    ``PoseNet(quant="int8")``: ``kernel_q`` HWIO -> ``weight_q`` (O,
+    kh*kw*I) in the kernel's (ky, kx, ci) order.
   * ``train_state_from_flax`` carries a whole JAX ``TrainState`` across:
     the above, plus the optax momentum trace and the SWA average under the
     same keys, as a ``train_lib.load_payload`` payload.
@@ -35,6 +46,7 @@ _RES_CONV = {"conv1": 0, "conv2": 3, "conv3": 6}
 _HG_SLOT = {"up1": 0, "low1": 1, "low2": 2, "refine": 3, "inner": 4}
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
+_SE_FC = {"fc1": "fc.0", "fc2": "fc.2"}
 
 
 def _residual_key(sub: str, kind: str) -> str:
@@ -78,11 +90,34 @@ def flax_to_reference_key(path: Tuple[str, ...], leaf: str) -> str:
     m = re.fullmatch(r"out(\d+)_s(\d)", top)
     if m:
         return f"outs.{m.group(1)}.{m.group(2)}.conv.{torch_leaf}"
+    m = re.fullmatch(r"chattn(\d+)_s(\d)", top)
+    if m:
+        return f"chattn.{m.group(1)}.{m.group(2)}.{_SE_FC[rest[0]]}.{torch_leaf}"
     m = re.fullmatch(r"merge_(pred|feat)(\d+)_s(\d)", top)
     if m:
         kind = "merge_preds" if m.group(1) == "pred" else "merge_features"
         return f"{kind}.{m.group(2)}.{m.group(3)}.conv.{rest[0]}.{torch_leaf}"
     raise KeyError(f"no reference key for flax leaf {path}/{leaf}")
+
+
+def flax_to_variant_key(path: Tuple[str, ...], leaf: str) -> str:
+    """Port key of one Flax leaf of ``IndependentPoseNet`` or ``AEPoseNet``
+    (module docstring)."""
+    torch_leaf = "weight" if leaf == "kernel" else _BN_LEAF[leaf]
+    out, i = [], 0
+    while i < len(path):
+        name = path[i]
+        if (name in _RES_CONV or name == "skip") and i + 1 < len(path):
+            out.append(_residual_key(name, path[i + 1]))
+            i += 1
+        else:
+            out.append(name)
+        i += 1
+    return ".".join(out + [torch_leaf])
+
+
+def _key_fn(tree: Dict[str, Any]):
+    return flax_to_variant_key if "pre0" in tree else flax_to_reference_key
 
 
 def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[Tuple[str, ...], str, Any]]:
@@ -98,6 +133,7 @@ def _reference_tensors(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     (float64 stays float64) under reference keys, laid out as the port's
     parameters."""
     out: Dict[str, torch.Tensor] = {}
+    key = _key_fn(tree)
     for path, leaf, val in _leaves(tree):
         arr = np.asarray(val)
         arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32)
@@ -106,7 +142,7 @@ def _reference_tensors(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:        # Dense (I, O) -> Linear (O, I)
                 arr = arr.T
-        out[flax_to_reference_key(path, leaf)] = torch.from_numpy(np.array(arr))
+        out[key(path, leaf)] = torch.from_numpy(np.array(arr))
     return out
 
 
@@ -120,6 +156,38 @@ def state_dict_from_flax(params: Dict[str, Any],
         out[key] = val
         if key.endswith("running_mean"):
             out[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def qstate_from_flax(qparams: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 ``PoseNet`` params (each quantized ConvBlock a
+    dict of ``kernel_q`` HWIO int8, ``bias``, ``w_scale``, ``a_scale``; the
+    SE Dense layers in fp32) -> the state_dict of the port's
+    ``PoseNet(quant="int8")``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        if "kernel_q" in tree:
+            name = flax_to_reference_key(path + ("conv",), "kernel")[:-len(".weight")]
+            kq = np.asarray(tree["kernel_q"])
+            if kq.dtype != np.int8:
+                raise ValueError(f"{'/'.join(path)}: kernel_q is {kq.dtype}")
+            kh, kw, cin, cout = kq.shape
+            out[f"{name}.weight_q"] = torch.from_numpy(np.ascontiguousarray(
+                kq.transpose(3, 0, 1, 2).reshape(cout, kh * kw * cin)))
+            for leaf in ("bias", "w_scale", "a_scale"):
+                out[f"{name}.{leaf}"] = torch.from_numpy(
+                    np.array(tree[leaf], dtype=np.float32))
+            return
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                arr = np.asarray(v, np.float32)
+                out[flax_to_reference_key(path, k)] = torch.from_numpy(
+                    np.array(arr.T if arr.ndim == 2 else arr))
+
+    walk(qparams, ())
     return out
 
 

@@ -30,7 +30,9 @@ from improved_body_parts_tpu_torch import configs as tconfigs
 from improved_body_parts_tpu_torch.apps import demo_image as tdemo
 from improved_body_parts_tpu_torch.apps import evaluate as tevaluate
 from improved_body_parts_tpu_torch.models.imhn import PoseNet
-from tests.test_torch_predict import ATOL, SIZE, _config
+from tests.test_torch_predict import (  # noqa: F401  (autouse fixture)
+    ATOL, SIZE, _config, single_torch_thread,
+)
 
 CONFIG_NAME = "TorchAppsTiny"
 CPU = torch.device("cpu")
@@ -210,8 +212,8 @@ def test_build_predictor_loads_pth_and_refuses_the_rest(tiny, tmp_path):
         assert torch.equal(v, want["module." + k]), k
     with pytest.raises(ValueError, match="export_to_torch_state_dict"):
         tdemo.build_predictor(str(tmp_path), CONFIG_NAME, device=CPU)
-    with pytest.raises(NotImplementedError):
-        tdemo.build_predictor(path, CONFIG_NAME, device=CPU, quantize="int8")
+    with pytest.raises(ValueError, match="quantize mode"):
+        tdemo.build_predictor(path, CONFIG_NAME, device=CPU, quantize="int4")
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -236,12 +238,17 @@ def test_apps_without_a_card_or_device_raise(monkeypatch, coco, tmp_path, app):
 
 
 @pytest.mark.parametrize("app", ["evaluate", "demo_image"])
-def test_apps_quantize_int8_raises(tiny, coco, tmp_path, app):
+def test_apps_quantize_int8_raises(tiny, coco, tmp_path, app, monkeypatch):
+    """--quantize int8 works (tests/test_torch_quantize.py) except on the
+    legacy-block family, which JAX refuses too."""
     path, _ = tiny
     _, _, img_dir, gt_json = coco
-    common = ["--checkpoint", path, "--config", CONFIG_NAME, "--quantize",
+    legacy = tconfigs.CanonicalConfig(width=SIZE, height=SIZE, model=tconfigs.ModelConfig(
+        nstack=2, inp_dim=32, increase=16, legacy_blocks=True, cross_stack=False))
+    monkeypatch.setitem(tconfigs.CONFIGS, "LegacyTiny", legacy)
+    common = ["--checkpoint", "", "--config", "LegacyTiny", "--quantize",
               "int8", "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="live PoseNet"):
         if app == "evaluate":
             tevaluate.main(common + ["--image-dir", img_dir, "--gt-json",
                                      gt_json, "--results-dir", str(tmp_path)])
@@ -338,6 +345,5 @@ def test_train_cli_needs_a_card_and_refuses_unported_modes(monkeypatch, tmp_path
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device is required"):
         ttrain.main(["--tiny-model", "-p", str(tmp_path)])
-    for flag in (["--model", "ae"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.main(["--device", "cpu", "-p", str(tmp_path)] + flag)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain.main(["--device", "cpu", "-p", str(tmp_path), "--multihost"])

@@ -348,3 +348,66 @@ def test_fused_peaks_cuda_long_lists(cuda, max_peaks):
     torch.cuda.synchronize()
     for name, a, b in zip(("scores", "yx", "n_raw", "patches"), got, want):
         assert torch.equal(a, b), name
+
+
+def _int8_conv_case(k, stride, dilation, cin, cout, dtype, seed, size=(19, 13)):
+    """Random NHWC activations with exact ties (a_scale a power of two and
+    half-integer multiples of it) and outliers beyond the clip, an int8
+    kernel over the full range, per-channel scales and a bias."""
+    rng = np.random.RandomState(seed)
+    a_scale = np.float32(2.0 ** -5)
+    x = rng.randn(2, *size, cin).astype(np.float32) * 1.5
+    ties = rng.rand(*x.shape) < 0.2
+    x[ties] = (rng.randint(-130, 130, ties.sum()) + 0.5) * a_scale
+    w = rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8)
+    w_scale = (rng.rand(cout) * 1e-3 + 1e-4).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32) * 0.1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (t(x).to(dtype), t(w), t(bias), t(w_scale), torch.tensor(a_scale),
+            dilation * (k - 1) // 2)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("cin", (3, 50, 64))
+@pytest.mark.parametrize("stride", (1, 2))
+@pytest.mark.parametrize("k,dilation", ((1, 1), (3, 1), (3, 3), (3, 5), (7, 1),
+                                        (7, 3), (7, 5)))
+def test_int8_conv_cuda_matches_plain(cuda, k, dilation, stride, cin, dtype):
+    """Every kernel size, stride and dilation of the grid, Cin not a
+    multiple of 32 (3, 50) and one that is, Cout below and above one
+    block's 64/128 columns: bit-identical to the plain version."""
+    cout = 50 if cin != 64 else 130
+    x, w, bias, w_scale, a_scale, pad = (
+        t.to(cuda) if isinstance(t, torch.Tensor) else t
+        for t in _int8_conv_case(k, stride, dilation, cin, cout, dtype,
+                                 seed=k * 100 + cin))
+    relu = (k + stride + dilation) % 2 == 0
+    n0 = kernels.int8_conv.launches
+    got = kernels.int8_conv(x, w, bias, w_scale, a_scale, stride, pad,
+                            dilation, relu)
+    torch.cuda.synchronize()
+    assert kernels.int8_conv.launches == n0 + 1
+    want = kernels.int8_conv_plain(x, w, bias, w_scale, a_scale, stride, pad,
+                                   dilation, relu)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("shape", ((16, 8, 8, 768, 768, 3), (2, 64, 64, 3, 64, 7),
+                                   (4, 1, 1, 32, 16, 3)))
+def test_int8_conv_cuda_model_edges(cuda, shape):
+    """The largest K (3x3 on 768 channels at the 8x8 scale-4 map of a 512²
+    batch of 16), the 7x7/s2 stem on 3 channels, and a 1x1 map."""
+    n, h, w_, cin, cout, k = shape
+    rng = np.random.RandomState(cin)
+    x = torch.from_numpy(rng.randn(n, h, w_, cin).astype(np.float32)).to(cuda)
+    # the extreme operand: every product 127 * 127, the sums near 127^2 * K
+    w = torch.full((cout, k, k, cin), 127, dtype=torch.int8, device=cuda)
+    args = (w, torch.zeros(cout, device=cuda), torch.full((cout,), 1e-6, device=cuda),
+            torch.tensor(1e-3, device=cuda))
+    stride = 2 if k == 7 else 1
+    for xx in (x.bfloat16(), x.abs() + 1.0):
+        got = kernels.int8_conv(xx, *args, stride, (k - 1) // 2, 1, False)
+        want = kernels.int8_conv_plain(xx, *args, stride, (k - 1) // 2, 1, False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -42,6 +42,7 @@ from improved_body_parts_tpu_torch.data.heatmaps_device import (
 )
 from improved_body_parts_tpu_torch.models.imhn import PoseNet
 from improved_body_parts_tpu_torch.utils.checkpoint import state_dict_from_flax
+from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(nstack=2, inp_dim=32, increase=16)
 

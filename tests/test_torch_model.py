@@ -31,6 +31,7 @@ from improved_body_parts_tpu_torch.utils.checkpoint import (
 )
 from reference_parity_common import seeded_state_dict_arrays
 from torch_mirror import TPoseNet
+from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 TINY = ModelConfig(nstack=2, inp_dim=32, increase=16, se_reduction=8)
@@ -163,9 +164,17 @@ def test_flax_and_jax_converter_agree():
 
 
 def test_unported_variants_raise():
-    for cfg in (tconfigs.ModelConfig(legacy_blocks=True),
-                tconfigs.ModelConfig(extra_attention=True)):
-        with pytest.raises(NotImplementedError):
-            PoseNet(cfg, device="meta")
-    with pytest.raises(NotImplementedError):
-        PoseNet(_port(TINY), device="meta", quant="int8")
+    """Every variant is ported (tests/test_torch_variants.py); what still
+    raises: ``legacy_blocks`` through ``PoseNet`` (``create_model`` builds
+    ``IndependentPoseNet``), quantizing ``IndependentPoseNet`` (as in JAX),
+    and an unknown quant mode."""
+    from improved_body_parts_tpu_torch.models.imhn import create_model
+    legacy = tconfigs.ModelConfig(legacy_blocks=True, cross_stack=False)
+    with pytest.raises(ValueError, match="create_model"):
+        PoseNet(legacy, device="meta")
+    with pytest.raises(ValueError, match="live PoseNet"):
+        create_model(legacy, device="meta", quant="int8")
+    with pytest.raises(ValueError, match="quant mode"):
+        PoseNet(_port(TINY), device="meta", quant="int4")
+    assert PoseNet(tconfigs.ModelConfig(extra_attention=True), device="meta",
+                   quant="int8").chattn is not None

@@ -24,6 +24,7 @@ from improved_body_parts_tpu.ops import peaks as jpeaks
 from improved_body_parts_tpu_torch.infer import predict as tpredict
 from improved_body_parts_tpu_torch.ops import limbs as tlimbs
 from improved_body_parts_tpu_torch.ops import peaks as tpeaks
+from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 ICFG = CanonicalConfig().infer
@@ -271,16 +272,16 @@ def test_pack_unpack_round_trip(scenes):
 
 
 def test_unported_options_raise():
-    """Post-processing is ported whole; what still raises is the model
-    variants and int8 (ROADMAP A10, A12)."""
+    """Post-processing, the model variants and int8 are ported; what still
+    raises is quantizing the legacy-block family (refused in JAX too)."""
     import dataclasses
 
     from improved_body_parts_tpu_torch.configs import ModelConfig
-    from improved_body_parts_tpu_torch.models.imhn import PoseNet
+    from improved_body_parts_tpu_torch.models.imhn import PoseNet, create_model
     tiny = ModelConfig(nstack=1, inp_dim=16, increase=8, se_reduction=4)
-    for kw in (dict(legacy_blocks=True), dict(extra_attention=True),
-               dict(cross_stack=False)):
-        with pytest.raises(NotImplementedError):
-            PoseNet(dataclasses.replace(tiny, **kw), device="meta")
-    with pytest.raises(NotImplementedError):
-        PoseNet(tiny, device="meta", quant="int8")
+    for kw in (dict(extra_attention=True), dict(cross_stack=False)):
+        assert type(create_model(dataclasses.replace(tiny, **kw), device="meta",
+                                 quant="int8")) is PoseNet
+    with pytest.raises(ValueError):
+        create_model(dataclasses.replace(tiny, legacy_blocks=True), device="meta",
+                     quant="int8")

@@ -31,6 +31,19 @@ SIZE = 128
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_torch_thread():
+    """One intra-op thread for a module's CPU work, restored after it: the
+    port's small tensors gain nothing from more, and threads that spin on
+    them oversubscribe the cores (tests/test_torch_apps.py alone took 112 s
+    with the default threads and 46 s with one; the parallel tier-1 run
+    multiplies the difference). Imported by the other port test modules."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config(cfgs=tconfigs):
     """The tiny config, built from the port's ``configs`` (or, for the JAX
     side, from ``jconfigs``)."""

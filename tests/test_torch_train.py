@@ -48,6 +48,7 @@ from improved_body_parts_tpu_torch.data.heatmaps import Heatmapper
 from improved_body_parts_tpu_torch.data.heatmaps_device import DeviceHeatmapper
 from improved_body_parts_tpu_torch.models.imhn import PoseNet
 from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 
 B, SIZE, P = 8, 64, 4
 LRS = (1e-2, 5e-3)

@@ -16,6 +16,7 @@ from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
 from tests.test_torch_train import (
     LRS, _configs, _feed, _port_state, _rel, check_two_steps, jax_trajectory,
 )
+from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import torch
 
 from improved_body_parts_tpu.ops import warp as jwarp
 from improved_body_parts_tpu_torch.ops import warp as twarp
+from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("angle", [0.0, 10.0, -15.0, 90.0])
