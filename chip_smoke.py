@@ -431,27 +431,41 @@ def entry_points(model, config, device, smi):
           flush=True)
 
 
+def busy_ms(fn, runs: int = 5) -> float:
+    """The device time the profiler attributes to the kernels of one call
+    of ``fn`` (the mean over ``runs``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    # the kernels' own rows (an operator's row repeats its kernels' time),
+    # or the operators' rows where the kernels have none
+    rows = prof.key_averages()
+    total = (sum(e.self_device_time_total for e in rows
+                 if e.device_type == DeviceType.CUDA)
+             or sum(e.self_device_time_total for e in rows))
+    return total / runs / 1e3
+
+
+def host_ms(fn, runs: int = 5) -> float:
+    """Median host time to enqueue one call of ``fn`` on an idle card."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def postprocess_times(posts, dev_args, smi) -> None:
     """Post-processing of one batch, unfused against fused, in turns
     (unfused, fused, fused, unfused): CUDA events around each call (the
     card's wall time, host-bound gaps included) and the device time the
     profiler attributes to its kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def busy_ms(fn, runs=5) -> float:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        # the kernels' own rows (an operator's row repeats its kernels' time),
-        # or the operators' rows where the kernels have none
-        rows = prof.key_averages()
-        total = (sum(e.self_device_time_total for e in rows
-                     if e.device_type == DeviceType.CUDA)
-                 or sum(e.self_device_time_total for e in rows))
-        return total / runs / 1e3
-
     res = {False: [], True: []}
     with torch.inference_mode():
         for fused in (False, True, True, False):
@@ -933,12 +947,14 @@ def _ceil8(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
-def int8_library_route(w, bias, w_scale, a_scale, stride, pad, dil, relu):
-    """``x -> int8_conv(x, w, ...)`` computed by PyTorch calls: quantize,
-    ``F.unfold`` (im2col: every activation copied k*k times) in fp16 (the
-    integers are exact), then ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32)
-    on K and N padded to multiples of 8, then the same epilogue. Timed as
-    the yardstick ``library_ms``; the port never calls it."""
+def int8_library_route(w, bias, w_scale, a_scale, stride, pad, dil, relu,
+                       out_dtype=None, a_next=None):
+    """``x -> int8_conv(x, w, ...)`` computed by PyTorch calls: quantize
+    (unless x is int8 already), ``F.unfold`` (im2col: every activation
+    copied k*k times) in fp16 (the integers are exact), then
+    ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32) on K and N padded to
+    multiples of 8, then the same epilogue [and requantize]. Timed as the
+    yardstick ``library_ms``; the port never calls it."""
     import torch.nn.functional as F
     cout, k, _, cin = w.shape
     K, Kp, Np = cin * k * k, max(_ceil8(cin * k * k), 24), _ceil8(cout)
@@ -948,7 +964,11 @@ def int8_library_route(w, bias, w_scale, a_scale, stride, pad, dil, relu):
 
     def route(x):
         n, h, wd, _ = x.shape
-        xq = torch.clamp(torch.round(x.float() / a_scale), -127, 127).half()
+        if x.dtype == torch.int8:
+            xq, dt = x.half(), out_dtype
+        else:
+            xq = torch.clamp(torch.round(x.float() / a_scale), -127, 127).half()
+            dt = x.dtype
         cols = F.unfold(xq.permute(0, 3, 1, 2), k, dilation=dil, padding=pad,
                         stride=stride)                        # (n, K, L)
         ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
@@ -956,10 +976,47 @@ def int8_library_route(w, bias, w_scale, a_scale, stride, pad, dil, relu):
         A = torch.zeros((n * ho * wo, Kp), dtype=torch.int8, device=x.device)
         A[:, :K] = cols.transpose(1, 2).reshape(n * ho * wo, K)
         acc = torch._int_mm(A, B)[:, :cout]
-        y = (acc.float() * scale + bias).to(x.dtype)
+        y = (acc.float() * scale + bias).to(dt)
         y = F.leaky_relu(y, 0.01) if relu else y
+        if a_next is not None:
+            y = torch.clamp(torch.round(y.float() / a_next), -127, 127).to(torch.int8)
         return y.reshape(n, ho, wo, cout)
     return route
+
+
+# the wgmma route's edges, (N, H, W, Cin, Cout, k, dilation): maps narrower
+# than the 16-column box (8x8, 16x16, 1x1), H*W no multiple of the
+# 128-pixel tile, Cout no multiple of 64 or 128, Cin below one 64-channel
+# slice, dilation 3, 4 and 5 past the map's edges, batch 1; each with float
+# or int8 input and float or requantized int8 output; the last two take the
+# 256-column tile
+INT8_WGMMA_EDGES = ((16, 8, 8, 64, 64, 3, 1), (16, 16, 16, 320, 320, 3, 1),
+                    (2, 19, 13, 32, 50, 3, 3), (1, 23, 29, 48, 130, 3, 4),
+                    (2, 12, 12, 64, 200, 3, 5), (3, 5, 7, 16, 24, 1, 1),
+                    (1, 1, 1, 64, 16, 3, 1), (4, 33, 17, 192, 136, 1, 1),
+                    (2, 16, 16, 256, 50, 1, 1), (16, 32, 32, 256, 256, 3, 1),
+                    (16, 64, 64, 128, 256, 3, 1), (4, 96, 90, 128, 512, 3, 1))
+
+
+def _int8_operands(g, shape, cout, k, device, a_scale):
+    """Activations with rounding ties and clipped outliers, a full-range
+    int8 kernel, per-channel scales and a bias."""
+    x = torch.randn(shape, generator=g) * 1.5
+    ties = torch.rand(x.shape, generator=g) < 0.2
+    x = torch.where(ties, (torch.randint(-130, 130, x.shape, generator=g) + 0.5)
+                    * a_scale, x).to(device)
+    w = torch.randint(-127, 128, (cout, k, k, shape[3]), generator=g,
+                      dtype=torch.int8).to(device)
+    w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(device)
+    bias = (torch.randn(cout, generator=g) * 0.1).to(device)
+    return x, w, bias, w_scale
+
+
+def _held(kernels, got, want, what) -> float:
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} differs from its plain version")
+    return max_abs_err([got], [want.contiguous()])
 
 
 def int8_edge_grid(kernels, device) -> tuple:
@@ -967,33 +1024,27 @@ def int8_edge_grid(kernels, device) -> tuple:
     stride 1/2 x dilation 1/3/5 x Cin 3/50/64 (K not a multiple of 32),
     Cout 50 and 130, bf16 and fp32, with rounding ties and clipped
     outliers, plus the extreme operand (every product 127 * 127) at the
-    largest K (3x3 on 768 channels, 8x8 maps of 16 frames) and a 1x1
-    map."""
-    n, worst = 0, 0.0
+    largest K (3x3 on 768 channels, 8x8 maps of 16 frames) and a 1x1 map;
+    the wgmma route's edges (INT8_WGMMA_EDGES) with float and int8 input and
+    output; int8_quantize on each input."""
+    n, worst, q_worst = 0, 0.0, 0.0
     g = torch.Generator().manual_seed(SEED)
     a_scale = torch.tensor(2.0 ** -5, device=device)
+    a_next = torch.tensor(2.0 ** -3, device=device)
     for k, dil in ((1, 1), (3, 1), (3, 3), (3, 5), (7, 1), (7, 3), (7, 5)):
         for stride in (1, 2):
             for cin in (3, 50, 64):
                 cout = 130 if cin == 64 else 50
-                x = torch.randn((2, 19, 13, cin), generator=g) * 1.5
-                ties = torch.rand(x.shape, generator=g) < 0.2
-                x = torch.where(ties, (torch.randint(-130, 130, x.shape, generator=g)
-                                       + 0.5) * 2.0 ** -5, x).to(device)
-                w = torch.randint(-127, 128, (cout, k, k, cin), generator=g,
-                                  dtype=torch.int8).to(device)
-                w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(device)
-                bias = (torch.randn(cout, generator=g) * 0.1).to(device)
+                x, w, bias, w_scale = _int8_operands(g, (2, 19, 13, cin), cout, k,
+                                                     device, 2.0 ** -5)
                 pad = dil * (k - 1) // 2
                 for dt in (torch.bfloat16, torch.float32):
                     relu = (k + stride + dil + n) % 2 == 0
                     args = (x.to(dt), w, bias, w_scale, a_scale, stride, pad, dil, relu)
-                    got, want = kernels.int8_conv(*args), kernels.int8_conv_plain(*args)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"int8_conv k={k} s={stride} d={dil} "
-                                             f"cin={cin} {dt} differs")
-                    worst = max(worst, max_abs_err([got], [want.contiguous()]))
+                    worst = max(worst, _held(kernels, kernels.int8_conv(*args),
+                                             kernels.int8_conv_plain(*args),
+                                             f"int8_conv k={k} s={stride} d={dil} "
+                                             f"cin={cin} {dt}"))
                     n += 1
     for shape in ((16, 8, 8, 768, 768, 3), (4, 1, 1, 32, 16, 3)):
         b, h, wd, cin, cout, k = shape
@@ -1002,31 +1053,52 @@ def int8_edge_grid(kernels, device) -> tuple:
         args = (x.bfloat16(), w, torch.zeros(cout, device=device),
                 torch.full((cout,), 1e-6, device=device), torch.tensor(1e-3, device=device),
                 1, 1, 1, False)
-        got, want = kernels.int8_conv(*args), kernels.int8_conv_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"int8_conv extreme operand {shape} differs")
+        _held(kernels, kernels.int8_conv(*args), kernels.int8_conv_plain(*args),
+              f"int8_conv extreme operand {shape}")
         n += 1
-    return n, worst
+    for b, h, wd, cin, cout, k, dil in INT8_WGMMA_EDGES:
+        x, w, bias, w_scale = _int8_operands(g, (b, h, wd, cin), cout, k, device,
+                                             2.0 ** -5)
+        pad = dil * (k - 1) // 2
+        for dt in (torch.bfloat16, torch.float32):
+            xf = x.to(dt)
+            xq = kernels.int8_quantize(xf, a_scale)
+            q_worst = max(q_worst, _held(kernels, xq,
+                                         kernels.int8_quantize_plain(xf, a_scale),
+                                         f"int8_quantize {tuple(x.shape)} {dt}"))
+            for xx in (xf, xq):
+                for nxt in (None, a_next):
+                    args = (xx, w, bias, w_scale, a_scale, 1, pad, dil,
+                            (cin + dil) % 2 == 0, dt, nxt)
+                    worst = max(worst, _held(
+                        kernels, kernels.int8_conv(*args), kernels.int8_conv_plain(*args),
+                        f"int8_conv wgmma route {(b, h, wd, cin, cout, k, dil)} {dt} "
+                        f"in {xx.dtype} out {'int8' if nxt is not None else dt}"))
+                    n += 1
+    return n, worst, q_worst
 
 
-def int8_conv_shapes(qmodel, both):
-    """Every distinct conv of one int8 ``predict_maps(both)``: {key: [count,
-    module, NHWC input, relu]}, in first-call order (hooks, kernels run)."""
+def int8_calls(qmodel, both):
+    """Every distinct int8_conv call of one int8 ``predict_maps(both)``:
+    {key: [count, module, NHWC input as given (float, or int8 on a fused
+    link), relu, out_dtype, a_next]}, in first-call order (hooks; the
+    kernels run)."""
     from improved_body_parts_tpu_torch.models.imhn import QConv2d
     found = {}
 
-    def hook(mod, args):
+    def hook(mod, args, kwargs):
         x, relu = args[0], bool(args[1])
-        key = (tuple(x.shape), mod.k, mod.stride, mod.padding, mod.dilation,
-               mod.outs, relu)
+        a_next, out_dtype = kwargs.get("a_next"), kwargs.get("out_dtype")
+        key = (tuple(x.shape), x.dtype, mod.k, mod.stride, mod.padding,
+               mod.dilation, mod.outs, relu, a_next is not None, out_dtype)
         if key in found:
             found[key][0] += 1
         else:
-            found[key] = [1, mod, x.permute(0, 2, 3, 1).contiguous().clone(), relu]
+            found[key] = [1, mod, x.permute(0, 2, 3, 1).contiguous().clone(), relu,
+                          out_dtype, a_next]
 
-    handles = [m.register_forward_pre_hook(hook) for m in qmodel.modules()
-               if isinstance(m, QConv2d)]
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in qmodel.modules() if isinstance(m, QConv2d)]
     try:
         with torch.inference_mode():
             qmodel.predict_maps(both)
@@ -1036,54 +1108,140 @@ def int8_conv_shapes(qmodel, both):
     return found
 
 
+def _conv_bounds(x, w, out, cout, k, cin) -> tuple:
+    """(operations bound ms, bytes bound ms): the int8 operations at 1,979
+    TOPS; the input, int8 weights, output and scales, each once, at 3.35
+    TB/s."""
+    m = out.shape[0] * out.shape[1] * out.shape[2]
+    ops = 2 * m * cout * cin * k * k
+    nbytes = x.nbytes + w.nbytes + out.nbytes + 3 * cout * 4 + 4
+    return ops / INT8_OPS_PER_S * 1e3, bound_ms(nbytes)
+
+
+def _route(kernels, mod, x, a_next=None) -> str:
+    """The route int8_conv takes for this call (NHWC ``x``)."""
+    return kernels.int8_conv_route(mod.ins, mod.stride, x.shape[1], x.shape[2],
+                                   mod.outs, mod.k,
+                                   x.dtype == torch.int8 or a_next is not None)
+
+
 def int8_shape_rows(kernels, found):
-    """At each distinct conv: the kernel against its plain version (bit for
-    bit) and its times beside the bound, the plain version and the library
-    route."""
+    """At each distinct conv shape of the unfused forward (bf16 in and out,
+    the definition of the mma.sync kernel's recorded rows): the route's
+    result against the plain version and the mma.sync kernel (both bit for
+    bit); times of the route, of the wgmma route's two launches alone
+    (int8_quantize, the GEMM: also where the static table sends the shape
+    back to the mma.sync kernel), of the mma.sync kernel, the plain version
+    and the library route, beside the bound."""
     rows, worst = [], 0.0
-    for key, (count, mod, x, relu) in found.items():
+    for key, (count, mod, x, relu, _, _) in found.items():
         w = mod.weight_q.view(mod.outs, mod.k, mod.k, mod.ins)
         args = (w, mod.bias, mod.w_scale, mod.a_scale, mod.stride, mod.padding,
                 mod.dilation, relu)
+        route = _route(kernels, mod, x)
+        tma = kernels.int8_conv_route(mod.ins, mod.stride, int8_io=True) == "wgmma"
         got = kernels.int8_conv(x, *args)
         want = kernels.int8_conv_plain(x, *args)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"int8_conv differs from its plain version at {key}")
-        worst = max(worst, max_abs_err([got], [want.contiguous()]))
+        worst = max(worst, _held(kernels, got, want, f"int8_conv at {key}"))
+        _held(kernels, kernels.int8_conv_mma_sync(x, *args), want,
+              f"the mma_sync kernel at {key}")
         lib = int8_library_route(*args)
         try:
             lib_equal = torch.equal(lib(x), got)
         except RuntimeError as e:      # a yardstick only: note it and go on
             print(f"unfold+_int_mm route refused at {key}: {e}", flush=True)
             lib = lib_equal = None
-        n, h, wd, cin = x.shape
-        m = got.shape[0] * got.shape[1] * got.shape[2]
-        ops = 2 * m * mod.outs * cin * mod.k * mod.k
-        nbytes = x.nbytes + w.nbytes + got.nbytes + 3 * mod.outs * 4 + 4
+        ops_ms, bytes_ms = _conv_bounds(x, w, got, mod.outs, mod.k, mod.ins)
         row = dict(shape=list(x.shape), k=mod.k, stride=mod.stride,
-                   dilation=mod.dilation, cout=mod.outs, relu=relu,
+                   dilation=mod.dilation, cout=mod.outs, relu=relu, route=route,
                    launches_per_batch=count,
                    ms=device_ms(lambda: kernels.int8_conv(x, *args), runs=10),
                    ms_cold=device_ms(lambda: kernels.int8_conv(x, *args), runs=10,
                                      cold=True),
+                   mma_sync_ms=device_ms(lambda: kernels.int8_conv_mma_sync(x, *args),
+                                    runs=10),
                    plain_ms=device_ms(lambda: kernels.int8_conv_plain(x, *args), runs=3),
                    library_ms=None if lib is None else device_ms(lambda: lib(x), runs=5),
                    library_equal=lib_equal,
-                   ops_bound_ms=ops / INT8_OPS_PER_S * 1e3,
-                   bytes_bound_ms=bound_ms(nbytes))
-        row["bound_ms"] = max(row["ops_bound_ms"], row["bytes_bound_ms"])
-        row["bound_by"] = ("operations" if row["ops_bound_ms"] >= row["bytes_bound_ms"]
-                           else "bytes")
+                   ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
+        if tma:
+            xq = kernels.int8_quantize(x, mod.a_scale)
+            _held(kernels, kernels.int8_conv(xq, *args, x.dtype), want,
+                  f"the wgmma route at {key}")
+            row["quantize_ms"] = device_ms(
+                lambda: kernels.int8_quantize(x, mod.a_scale), runs=10)
+            row["gemm_ms"] = device_ms(
+                lambda: kernels.int8_conv(xq, *args, x.dtype), runs=10)
+        row["bound_ms"] = max(ops_ms, bytes_ms)
+        row["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
+        split = ""
+        if tma:
+            split = (f" (quantize {row['quantize_ms']:.4f} + gemm {row['gemm_ms']:.4f})"
+                     if route == "wgmma" else " (sent back by the static table: the "
+                     f"wgmma route's quantize {row['quantize_ms']:.4f} + gemm "
+                     f"{row['gemm_ms']:.4f})")
         print(f"int8_conv {tuple(x.shape)} k{mod.k} s{mod.stride} d{mod.dilation} "
-              f"-> {mod.outs} x{count}: {row['ms']:.4f} ms warm / "
-              f"{row['ms_cold']:.4f} cold, bound {row['bound_ms']:.4f} "
-              f"({row['bound_by']}, share {row['share_of_bound']:.3f}), plain "
-              f"{row['plain_ms']:.3f}, unfold+_int_mm {row['library_ms']}"
+              f"-> {mod.outs} x{count} [{route}]: {row['ms']:.4f} ms warm{split} / "
+              f"{row['ms_cold']:.4f} cold; mma.sync kernel {row['mma_sync_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, share "
+              f"{row['share_of_bound']:.3f}), plain {row['plain_ms']:.3f}, "
+              f"unfold+_int_mm {row['library_ms']}"
               f"{'' if lib_equal else ' (NOT equal)'}", flush=True)
     return rows, worst
+
+
+def int8_forward_rows(kernels, calls):
+    """Each distinct int8_conv call of the forward as it runs (fused links:
+    int8 in, int8 out), bit for bit against the plain version; the time of
+    the call, of its int8_quantize launch alone (a float input on the
+    wgmma route) and of its conv kernel alone, beside the conv kernel's
+    bound (its own input and output types), the plain version and the
+    library route on the same arguments."""
+    rows, worst, q_worst = [], 0.0, 0.0
+    for key, (count, mod, x, relu, out_dtype, a_next) in calls.items():
+        w = mod.weight_q.view(mod.outs, mod.k, mod.k, mod.ins)
+        args = (w, mod.bias, mod.w_scale, mod.a_scale, mod.stride, mod.padding,
+                mod.dilation, relu, out_dtype, a_next)
+        route = _route(kernels, mod, x, a_next)
+        got = kernels.int8_conv(x, *args)
+        worst = max(worst, _held(kernels, got, kernels.int8_conv_plain(*(x,) + args),
+                                 f"int8_conv as run at {key}"))
+        quantizes = route == "wgmma" and x.dtype != torch.int8
+        row = dict(shape=list(x.shape), dtype=str(x.dtype).removeprefix("torch."),
+                   k=mod.k, dilation=mod.dilation, cout=mod.outs, route=route,
+                   requantizes=a_next is not None, launches_per_batch=count,
+                   call_ms=device_ms(lambda: kernels.int8_conv(x, *args), runs=10),
+                   plain_ms=device_ms(lambda: kernels.int8_conv_plain(x, *args), runs=3))
+        lib = int8_library_route(*args)
+        try:
+            lib(x)
+            row["library_ms"] = device_ms(lambda: lib(x), runs=5)
+        except RuntimeError:
+            row["library_ms"] = None
+        xk = x
+        if quantizes:
+            xk = kernels.int8_quantize(x, mod.a_scale)
+            q_worst = max(q_worst, _held(kernels, xk,
+                                         kernels.int8_quantize_plain(x, mod.a_scale),
+                                         f"int8_quantize at {key}"))
+            row["quantize_ms"] = device_ms(
+                lambda: kernels.int8_quantize(x, mod.a_scale), runs=10)
+            row["quantize_plain_ms"] = device_ms(
+                lambda: kernels.int8_quantize_plain(x, mod.a_scale), runs=5)
+            row["quantize_bound_ms"] = bound_ms(x.nbytes + xk.nbytes)
+            kargs = args[:8] + (x.dtype, a_next)
+            row["ms"] = device_ms(lambda: kernels.int8_conv(xk, *kargs), runs=10)
+        else:
+            row["quantize_ms"] = row["quantize_bound_ms"] = 0.0
+            row["quantize_plain_ms"] = 0.0
+            row["ms"] = row["call_ms"]
+        ops_ms, bytes_ms = _conv_bounds(xk, w, got, mod.outs, mod.k, mod.ins)
+        row.update(ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+                   bound_ms=max(ops_ms, bytes_ms))
+        rows.append(row)
+    return rows, worst, q_worst
 
 
 def corr_err(got: torch.Tensor, want: torch.Tensor):
@@ -1107,11 +1265,13 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
     from improved_body_parts_tpu_torch.models import quantize as qz
     from improved_body_parts_tpu_torch.ops import kernels
 
-    n_edge, edge_err = int8_edge_grid(kernels, device)
+    n_edge, edge_err, q_err = int8_edge_grid(kernels, device)
     print(f"int8_conv edge grid: {n_edge} cases bit-identical to the plain "
           "version (k 1/3/7 x stride 1/2 x dilation 1/3/5 x Cin 3/50/64, "
           "bf16 and fp32, ties and clipped outliers; the extreme operand at "
-          "K 6,912 and on a 1x1 map)", flush=True)
+          "K 6,912 and on a 1x1 map; the wgmma route on "
+          f"{len(INT8_WGMMA_EDGES)} edge shapes x bf16/fp32 x int8 or float "
+          "in x int8 or float out); int8_quantize on each input", flush=True)
 
     model = copy.deepcopy(model_cpu).to(device, memory_format=torch.channels_last)
     torch.cuda.synchronize()
@@ -1135,19 +1295,38 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
 
     imgs = torch.from_numpy(frames).to(device).float() / 255.0
     both = torch.cat([imgs, imgs.flip(2)], dim=0)             # 8 frames + flips
-    found = int8_conv_shapes(qmodel, both)
+    # every conv bf16 -> bf16, no int8 links: the mma.sync kernel's recorded rows
+    qz.set_int8_links(qmodel, False)
+    found = int8_calls(qmodel, both)
+    with torch.inference_mode():
+        unfused_maps = qmodel.predict_maps(both)
+    qz.set_int8_links(qmodel, True)
     n_convs = sum(v[0] for v in found.values())
-    print(f"int8 predict_maps of {both.shape[0]} x {both.shape[1]}^2 runs {n_convs} conv blocks "
-          f"in {len(found)} distinct shapes", flush=True)
+    print(f"int8 predict_maps of {both.shape[0]} x {both.shape[1]}^2 runs {n_convs} "
+          f"conv blocks in {len(found)} distinct shapes", flush=True)
     rows, shape_err = int8_shape_rows(kernels, found)
     del found
     torch.cuda.empty_cache()
 
+    # the forward as it runs: int8 passed along the residual chains
+    calls = int8_calls(qmodel, both)
     with torch.inference_mode():
         q_maps = qmodel.predict_maps(both)
+    if not torch.equal(q_maps, unfused_maps):
+        raise AssertionError("the fused int8 forward differs from the unfused one")
+    routes = {r: sum(v[0] for v in calls.values() if _route(kernels, v[1], v[2], v[5]) == r)
+              for r in ("wgmma", "mma_sync")}
+    print(f"the fused forward's {sum(v[0] for v in calls.values())} conv calls in "
+          f"{len(calls)} distinct forms, by route {routes}", flush=True)
+    fwd_rows, fwd_err, fwd_q_err = int8_forward_rows(kernels, calls)
+    del calls, unfused_maps
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
         f_maps = calib.predict_maps(both)
     corr, err = corr_err(q_maps, f_maps)
-    print(f"int8 predict_maps of {both.shape[0]} x {both.shape[1]}^2 against the bf16 folded maps: corr "
+    print(f"int8 predict_maps of {both.shape[0]} x {both.shape[1]}^2 (int8 links "
+          f"fused: bit-identical to unfused) against the bf16 folded maps: corr "
           f"{corr:.6f}, max error {err:.4f} of the span (JAX's own bound: corr > "
           f"0.98, < 0.15)", flush=True)
     if not (torch.isfinite(q_maps).all() and corr > 0.98 and err < 0.15):
@@ -1159,15 +1338,19 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
     with torch.inference_mode():
         pred.predict_batch(frames, use_cpp=True)             # warm-up
         int8_ms = device_ms(lambda: pred._flip_avg_maps(imgs), runs=5)
+        int8_busy = busy_ms(lambda: pred._flip_avg_maps(imgs))
+        int8_host = host_ms(lambda: pred._flip_avg_maps(imgs))
     print(f"int8 network: {int8_ms:.1f} ms per batch of {BATCH} x 512^2 + flips "
           f"against {net_ms:.1f} ms for the bf16 network in phase 3 "
-          f"({net_ms / int8_ms:.2f}x; {smi})", flush=True)
+          f"({net_ms / int8_ms:.2f}x; with the mma.sync kernel alone it took 78.6 ms); the card busy "
+          f"{int8_busy:.1f} ms of it (profiler), the host enqueues it in "
+          f"{int8_host:.1f} ms ({smi})", flush=True)
 
-    calls = [0]
+    calls_n = [0]
     predict_maps = qmodel.predict_maps
 
     def counted(x):
-        calls[0] += 1
+        calls_n[0] += 1
         return predict_maps(x)
     qmodel.predict_maps = counted
     torch.cuda.synchronize()
@@ -1176,15 +1359,22 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
     fps = serve_requests(pred, requests, DEPTH, "int8")
     torch.cuda.synchronize()
     launches = kernels.int8_conv.launches
+    by_route = dict(kernels.int8_conv.launches_by_route)
+    q_launches = kernels.int8_quantize.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del qmodel.predict_maps
+    q_per_batch = sum(r["launches_per_batch"] for r in fwd_rows if r["quantize_ms"])
     print(f"int8 PipelinedServer (batch {BATCH}, depth {DEPTH}): {len(requests)} "
           f"requests at {fps:.2f} frames/s end to end; int8_conv launches "
-          f"{launches} = {n_convs} conv blocks x {calls[0]} batches; nms launches "
-          f"{kernels.nms.launches}; peak {peak:.2f} GiB ({smi})", flush=True)
-    if launches != n_convs * calls[0] or calls[0] == 0 or kernels.nms.launches == 0:
+          f"{launches} = {n_convs} conv blocks x {calls_n[0]} batches, by route "
+          f"{by_route}; int8_quantize launches {q_launches} ({q_per_batch} a batch); "
+          f"nms launches {kernels.nms.launches}; peak {peak:.2f} GiB ({smi})", flush=True)
+    if (launches != n_convs * calls_n[0] or calls_n[0] == 0 or kernels.nms.launches == 0
+            or sum(by_route.values()) != launches
+            or any(by_route[r] != routes[r] * calls_n[0] for r in routes)
+            or q_launches != q_per_batch * calls_n[0]):
         raise AssertionError("int8 serving did not launch int8_conv once per conv "
-                             "block per batch")
+                             "block per batch on the routes of its shapes")
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "canonical_int8.pth")
@@ -1207,34 +1397,68 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
     del pred, qmodel
     torch.cuda.empty_cache()
 
-    def total(f):
-        if any(r[f] is None for r in rows):
+    def total(rs, f):
+        if any(r.get(f) is None for r in rs):
             return None
-        return sum(r[f] * r["launches_per_batch"] for r in rows)
-    kernel_row = dict(
+        return sum(r[f] * r["launches_per_batch"] for r in rs)
+    bf16_sum = dict(ms=total(rows, "ms"), ms_cold=total(rows, "ms_cold"),
+                    mma_sync_ms=total(rows, "mma_sync_ms"), plain_ms=total(rows, "plain_ms"),
+                    bound_ms=total(rows, "bound_ms"), library_ms=total(rows, "library_ms"))
+    bf16_sum["share_of_bound"] = bf16_sum["bound_ms"] / bf16_sum["ms"]
+    print(f"int8_conv bf16 -> bf16 over one batch's {n_convs} launches: "
+          f"{bf16_sum['ms']:.2f} ms warm / {bf16_sum['ms_cold']:.2f} cold (the "
+          f"mma.sync kernel alone in this run {bf16_sum['mma_sync_ms']:.2f}; its "
+          f"recorded time 67.19), bound {bf16_sum['bound_ms']:.2f} ms (share "
+          f"{bf16_sum['share_of_bound']:.3f}), plain {bf16_sum['plain_ms']:.1f} ms, "
+          f"unfold+_int_mm {bf16_sum['library_ms']} ms ({smi})", flush=True)
+    conv_ms, quant_ms = total(fwd_rows, "ms"), total(fwd_rows, "quantize_ms")
+    forward_ms = conv_ms + quant_ms
+    print(f"int8_conv + int8_quantize over one batch as the forward runs them "
+          f"(fused links): {forward_ms:.2f} ms (conv kernels {conv_ms:.2f}, "
+          f"{q_per_batch} quantize passes {quant_ms:.2f}; the calls timed whole "
+          f"{total(fwd_rows, 'call_ms'):.2f}) against the 67.19 ms recorded for the mma.sync kernel alone; share "
+          f"{bf16_sum['bound_ms'] / forward_ms:.3f} of the bf16 -> bf16 bound "
+          f"{bf16_sum['bound_ms']:.2f} ms ({smi})", flush=True)
+    conv_row = dict(
         name="int8_conv", route="cuda",
         source="improved_body_parts_tpu_torch/csrc/int8_conv.cu",
         replaces="improved_body_parts_tpu/models/imhn.py:90",
-        launches=launches, launches_per_batch=n_convs,
-        max_abs_err=max(edge_err, shape_err),
-        per="one int8 predict_maps of 16 x 512^2 (8 frames + flips): the sum "
-            "over its conv launches",
-        ms=total("ms"), ms_cold=total("ms_cold"), plain_ms=total("plain_ms"),
-        bound_ms=total("bound_ms"), library_ms=total("library_ms"),
-        bound_by=("operations" if total("ops_bound_ms") >= total("bytes_bound_ms")
-                  else "bytes"))
-    kernel_row["share_of_bound"] = kernel_row["bound_ms"] / kernel_row["ms"]
-    print(f"int8_conv over one batch's {n_convs} launches: {kernel_row['ms']:.2f} ms "
-          f"warm / {kernel_row['ms_cold']:.2f} cold, bound {kernel_row['bound_ms']:.2f} "
-          f"ms ({kernel_row['bound_by']}, share {kernel_row['share_of_bound']:.3f}), "
-          f"plain {kernel_row['plain_ms']:.1f} ms, unfold+_int_mm "
-          f"{kernel_row['library_ms']} ms ({smi})", flush=True)
-    kernel_row["at_shapes"] = rows
+        launches=launches, launches_by_route=by_route, launches_per_batch=n_convs,
+        max_abs_err=max(edge_err, shape_err, fwd_err),
+        per="one int8 predict_maps of 16 x 512^2 (8 frames + flips) as it runs "
+            "(int8 links fused): the sum over its conv kernel launches",
+        ms=conv_ms, plain_ms=total(fwd_rows, "plain_ms"),
+        bound_ms=total(fwd_rows, "bound_ms"), library_ms=total(fwd_rows, "library_ms"),
+        bound_by=("operations" if total(fwd_rows, "ops_bound_ms")
+                  >= total(fwd_rows, "bytes_bound_ms") else "bytes"),
+        forward_ms=forward_ms, bf16_to_bf16=bf16_sum)
+    conv_row["share_of_bound"] = conv_row["bound_ms"] / conv_row["ms"]
+    conv_row["at_shapes"] = rows
+    conv_row["as_run"] = fwd_rows
+    q_rows = [r for r in fwd_rows if r["quantize_ms"]]
+    quant_row = dict(
+        name="int8_quantize", route="cuda",
+        source="improved_body_parts_tpu_torch/csrc/int8_conv.cu",
+        replaces="improved_body_parts_tpu/models/imhn.py:87",
+        launches=q_launches, launches_per_batch=q_per_batch,
+        max_abs_err=max(q_err, fwd_q_err),
+        per="one int8 predict_maps of 16 x 512^2: the sum over its int8_quantize "
+            "launches",
+        ms=quant_ms, plain_ms=total(q_rows, "quantize_plain_ms"),
+        bound_ms=total(q_rows, "quantize_bound_ms"),
+        bound_by="bytes", library_ms=None)
+    quant_row["share_of_bound"] = quant_row["bound_ms"] / quant_row["ms"]
+    print(f"int8_quantize over one batch's {q_per_batch} launches: {quant_ms:.3f} ms, "
+          f"bound {quant_row['bound_ms']:.3f} ms (bytes, share "
+          f"{quant_row['share_of_bound']:.3f}), plain {quant_row['plain_ms']:.3f} ms "
+          f"({smi})", flush=True)
     line = dict(ptq_s=ptq_s, corr=corr, err_of_span=err, int8_ms=int8_ms,
+                int8_busy_ms=int8_busy, int8_host_ms=int8_host,
                 bf16_ms=net_ms, frames_per_s=fps, peak_gib=peak, pth_mib=mib,
-                convs_per_batch=n_convs, distinct_shapes=len(rows))
-    return kernel_row, line
-
+                convs_per_batch=n_convs, distinct_shapes=len(rows),
+                launches_by_route_per_batch=routes, forward_ms=forward_ms,
+                bf16_to_bf16_ms=bf16_sum["ms"], mma_sync_kernel_ms=bf16_sum["mma_sync_ms"])
+    return [quant_row, conv_row], line
 
 
 def main() -> int:
@@ -1434,9 +1658,9 @@ def main() -> int:
 
     # -- 10: int8 ----------------------------------------------------------------------
     phase("10 int8: PTQ of Canonical, int8_conv vs plain, int8 serving")
-    int8_row, int8_line = int8(model_cpu, config, frames, requests, device, smi,
-                               net_ms)
-    kernel_rows.append(int8_row)
+    int8_rows, int8_line = int8(model_cpu, config, frames, requests, device, smi,
+                                net_ms)
+    kernel_rows += int8_rows
     print(json.dumps({"variants": variant_line, "int8": int8_line}), flush=True)
 
     print(json.dumps({"kernels": kernel_rows}))

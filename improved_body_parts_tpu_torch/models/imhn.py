@@ -16,8 +16,9 @@ carry the Flax names (``utils/checkpoint.py`` maps them).
 (``models/quantize.py`` builds the weights): every conv block's
 convolution is a ``QConv2d`` on BN-folded weights and its BatchNorm is
 gone; ``"calib"`` runs it in ``compute_dtype`` and records its input's fp32
-abs-max, ``"int8"`` runs ``ops.kernels.int8_conv``. The SE linears stay in
-``compute_dtype``, as in JAX.
+abs-max, ``"int8"`` runs ``ops.kernels.int8_conv`` (a residual's chain
+passes int8 between its convs, ``Residual.int8_links``). The SE linears
+stay in ``compute_dtype``, as in JAX.
 
 Precision follows the JAX model: parameters are stored in fp32; convs and
 linears run in ``compute_dtype`` (bf16 by default) on weights cast at the
@@ -84,7 +85,10 @@ class QConv2d(nn.Module):
       * ``"int8"``: buffers ``weight_q`` (Cout, kh*kw*Cin) int8 in (ky, kx,
         ci) order, ``bias`` and ``w_scale`` (Cout,) and ``a_scale`` ()
         float32; the forward is ``ops.kernels.int8_conv`` on the NHWC view
-        of a channels_last input.
+        of a channels_last input. The input may be int8, already quantized
+        with ``a_scale`` (then ``out_dtype`` names the compute type), and
+        with ``a_next`` the output is int8, quantized with the next conv's
+        scale (``Residual.int8_links``).
     """
 
     def __init__(self, ins: int, outs: int, k: int, stride: int, padding: int,
@@ -104,7 +108,14 @@ class QConv2d(nn.Module):
         else:
             raise ValueError(f"unknown quant mode {quant!r}")
 
-    def forward(self, x, relu: bool, stats: BNStats = None):
+    @property
+    def int8_io(self) -> bool:
+        """Whether this conv's kernel takes int8 input and writes int8
+        output (``kernels.int8_conv_route``): decided by its shape."""
+        return kernels.int8_conv_route(self.ins, self.stride, int8_io=True) == "wgmma"
+
+    def forward(self, x, relu: bool, stats: BNStats = None, a_next=None,
+                out_dtype=None):
         if self.quant == "calib":
             if stats is not None:
                 m = x.detach().float().abs().amax()
@@ -117,7 +128,7 @@ class QConv2d(nn.Module):
         w = self.weight_q.view(self.outs, self.k, self.k, self.ins)
         y = kernels.int8_conv(x.permute(0, 2, 3, 1).contiguous(), w, self.bias,
                               self.w_scale, self.a_scale, self.stride,
-                              self.padding, self.dilation, relu)
+                              self.padding, self.dilation, relu, out_dtype, a_next)
         return y.permute(0, 3, 1, 2)
 
 
@@ -185,7 +196,14 @@ class Conv(nn.Module):
 
 class Residual(nn.Module):
     """Bottleneck residual 1x1 -> 3x3 -> 1x1 with an identity (or 1x1) skip.
-    reference: models/layers_transposed.py:12-48."""
+    reference: models/layers_transposed.py:12-48.
+
+    In the int8 mode each conv of the chain feeds only the next, so where
+    both ends of a link take int8 (``QConv2d.int8_io``) the producer writes
+    its output quantized with the consumer's ``a_scale`` (``int8_links``,
+    conv 0 -> 3 and 3 -> 6): the bytes the consumer would make from the
+    ``compute_dtype`` tensor, which is then never written. None outside the
+    int8 mode."""
 
     def __init__(self, ins: int, outs: int, device=None,
                  quant: Optional[str] = None):
@@ -202,12 +220,27 @@ class Residual(nn.Module):
                                           make_bn(outs, **q))
         else:
             self.skipConv = None
+        self.int8_links = self.fusable_links() if quant == "int8" else None
+
+    def fusable_links(self, fused: bool = True) -> tuple:
+        """(conv 0 -> 3, conv 3 -> 6): where both ends take int8, by shape;
+        neither unless ``fused``."""
+        io = [self.convBlock[i].int8_io for i in (0, 3, 6)]
+        return (fused and io[0] and io[1], fused and io[1] and io[2])
 
     def forward(self, x, bn_stats: BNStats = None):
         cb = self.convBlock
-        h = conv_bn(cb[0], cb[1], x, True, bn_stats)
-        h = conv_bn(cb[3], cb[4], h, True, bn_stats)
-        h = conv_bn(cb[6], cb[7], h, False, bn_stats)
+        if self.int8_links is not None:
+            fuse0, fuse1 = self.int8_links
+            dt = x.dtype
+            h = cb[0](x, True, a_next=cb[3].a_scale if fuse0 else None)
+            h = cb[3](h, True, a_next=cb[6].a_scale if fuse1 else None,
+                      out_dtype=dt if fuse0 else None)
+            h = cb[6](h, False, out_dtype=dt if fuse1 else None)
+        else:
+            h = conv_bn(cb[0], cb[1], x, True, bn_stats)
+            h = conv_bn(cb[3], cb[4], h, True, bn_stats)
+            h = conv_bn(cb[6], cb[7], h, False, bn_stats)
         if self.skipConv is not None:
             x = conv_bn(self.skipConv[0], self.skipConv[1], x, False, bn_stats)
         return F.leaky_relu(h + x, LEAKY_SLOPE)

@@ -12,6 +12,8 @@ order and arithmetic:
      ``max(absmax / 127, 1e-8)``, rounding half to even, clipped to ±127.
   4. The ``quant="int8"`` model runs each conv through
      ``ops.kernels.int8_conv``; the SE linears stay in ``compute_dtype``.
+     A residual's 1x1 -> 3x3 -> 1x1 chain passes int8: each producing conv
+     writes its output quantized for the next (``set_int8_links``).
 
 ``save_quantized`` writes the int8 model as a ``.pth`` in the port's own
 layout (the JAX package writes orbax): about 4x smaller than the fp32
@@ -30,7 +32,7 @@ import torch
 from torch import nn
 
 from improved_body_parts_tpu_torch.configs import ModelConfig
-from improved_body_parts_tpu_torch.models.imhn import BN_EPS, PoseNet, QConv2d
+from improved_body_parts_tpu_torch.models.imhn import BN_EPS, PoseNet, QConv2d, Residual
 
 QUANT_TAG = "int8"
 
@@ -140,6 +142,16 @@ def quantize_model(model: PoseNet, calib_batches: Iterable) -> PoseNet:
     qmodel = make_quant_model(model.cfg, "int8", device, model.compute_dtype)
     qmodel.load_state_dict(build_quantized(folded, stats), strict=True)
     return qmodel
+
+
+def set_int8_links(model: nn.Module, fused: bool = True) -> None:
+    """Pass int8 along every int8 residual chain where the convs' shapes
+    allow (``fused``, the default the model is built with), or nowhere:
+    then each conv gets its input in ``compute_dtype`` and quantizes it
+    itself. Both give the same bits."""
+    for m in model.modules():
+        if isinstance(m, Residual) and m.int8_links is not None:
+            m.int8_links = m.fusable_links(fused)
 
 
 def count_int8_convs(model: nn.Module) -> int:

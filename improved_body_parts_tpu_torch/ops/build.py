@@ -40,6 +40,11 @@ _ARGTYPES = {
     # x, w, bias, w_scale, a_scale, out, n, h, w, cin, cout, kh, kw, stride,
     # pad, dilation, ho, wo, relu, bf16, stream
     "ibp_int8_conv": [_P, _P, _P, _P, _P, _P] + [ctypes.c_int] * 14 + [_P],
+    # x, out, a_scale, n, bf16, stream
+    "ibp_int8_quantize": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    # x (or None), x_bf16, xq, w, bias, w_scale, a_scale, a_next (or None),
+    # out, n, h, w, cin, cout, k, pad, dilation, ho, wo, relu, bf16, stream
+    "ibp_int8_conv_wgmma": [_P, ctypes.c_int] + [_P] * 7 + [ctypes.c_int] * 12 + [_P],
 }
 
 _lock = threading.Lock()

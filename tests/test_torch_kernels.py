@@ -1,10 +1,13 @@
-"""The port's two CUDA kernels: their plain PyTorch versions against the TPU
+"""The port's CUDA kernels: their plain PyTorch versions against the TPU
 kernels (Pallas in interpret mode, as tests/test_pallas_kernels.py runs
-them), and the CUDA kernels against the plain versions on the card.
+them), the int8 plain twins against each other, and the CUDA kernels
+against the plain versions on the card (``int8_conv`` on both of its
+routes, with float and int8 input and output).
 
-Every comparison is exact: both kernels are pure compares and copies. This
-module imports no jax at the top, so on the machine with the card (which
-has no jax) the CUDA cases run with
+Every comparison is exact: ``nms`` and ``fused_peaks`` are pure compares
+and copies, ``int8_quantize`` and ``int8_conv`` round each float step as
+their plain versions do. This module imports no jax at the top, so on the
+machine with the card (which has no jax) the CUDA cases run with
 ``python -m pytest tests/test_torch_kernels.py --noconftest -k cuda``.
 """
 
@@ -411,3 +414,185 @@ def test_int8_conv_cuda_model_edges(cuda, shape):
         want = kernels.int8_conv_plain(xx, *args, stride, (k - 1) // 2, 1, False)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# int8_quantize and the int8 input/output of int8_conv: plain twins on the
+# CPU, the kernels on the card
+# ---------------------------------------------------------------------------
+
+QUANT_CASES = [(k, s, d, c) for k, d in ((1, 1), (3, 1), (3, 5), (7, 3))
+               for s in (1, 2) for c in (3, 50, 64)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("k,stride,dilation,cin", QUANT_CASES[:6])
+def test_int8_quantize_plain_is_the_conv_first_step(k, stride, dilation, cin, dtype):
+    """``int8_quantize_plain`` is the first line of the JAX block (and of
+    ``int8_conv_plain``): ties to even and the clip included."""
+    x, _, _, _, a_scale, _ = _int8_conv_case(k, stride, dilation, cin, 8, dtype,
+                                             seed=cin + k)
+    got = kernels.int8_quantize_plain(x, a_scale)
+    want = torch.clamp(torch.round(x.float() / a_scale), -127, 127)
+    assert got.dtype == torch.int8 and torch.equal(got.float(), want)
+    xf = x.float()
+    ties = ((xf / a_scale - torch.floor(xf / a_scale)) == 0.5) & ((xf / a_scale).abs() < 127)
+    assert ties.any() and (got.abs() == 127).any()
+    assert torch.equal(got[ties].float(), torch.round(xf[ties] / a_scale))
+
+
+@pytest.mark.parametrize("k,stride,dilation,cin", QUANT_CASES)
+def test_int8_conv_plain_on_quantized_input(k, stride, dilation, cin):
+    """A pre-quantized int8 input gives the float input's result, and the
+    requantizing output is ``int8_quantize_plain`` of the float output."""
+    cout = 24
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, bias, w_scale, a_scale, pad = _int8_conv_case(
+            k, stride, dilation, cin, cout, dtype, seed=k * 7 + cin)
+        args = (w, bias, w_scale, a_scale, stride, pad, dilation, True)
+        want = kernels.int8_conv_plain(x, *args)
+        xq = kernels.int8_quantize_plain(x, a_scale)
+        got = kernels.int8_conv_plain(xq, *args, out_dtype=dtype)
+        assert got.dtype == dtype and torch.equal(got, want)
+        a_next = torch.tensor(np.float32(2.0 ** -3))
+        req = kernels.int8_conv_plain(x, *args, a_next=a_next)
+        assert torch.equal(req, kernels.int8_quantize_plain(want, a_next))
+        assert torch.equal(kernels.int8_conv_plain(xq, *args, out_dtype=dtype,
+                                                   a_next=a_next), req)
+        # the CPU wrapper is the plain twin, int8 in and out included
+        assert torch.equal(kernels.int8_conv(xq, *args, out_dtype=dtype,
+                                             a_next=a_next), req)
+    with pytest.raises(ValueError):          # an int8 input names its type
+        kernels.int8_conv_plain(xq, *args)
+
+
+def test_int8_conv_route_is_static():
+    """The route depends on the shape alone: Cin and the stride, and for a
+    float-in, float-out call the table of shapes where the mma.sync kernel was
+    measured faster."""
+    assert kernels.int8_conv_route(64, 1) == "wgmma"
+    assert kernels.int8_conv_route(16, 1) == "wgmma"
+    assert kernels.int8_conv_route(50, 1) == "mma_sync"
+    assert kernels.int8_conv_route(3, 2) == "mma_sync"
+    assert kernels.int8_conv_route(64, 2) == "mma_sync"
+    for h, w, cin, cout, k in kernels._MMA_SYNC_FASTER:
+        assert kernels.int8_conv_route(cin, 1, h, w, cout, k) == "mma_sync"
+        assert kernels.int8_conv_route(cin, 1, h, w, cout, k, int8_io=True) == "wgmma"
+        assert kernels.int8_conv_route(cin, 1, h, w + 1, cout, k) == "wgmma"
+
+
+@pytest.mark.parametrize("shape", ((2, 19, 13, 64), (3, 5, 7, 16), (1, 1, 1, 33),
+                                   (16, 8, 8, 384)))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_int8_quantize_cuda_matches_plain(cuda, shape, dtype):
+    """Element counts that are and are not multiples of a thread's 16;
+    ties and clipped outliers."""
+    rng = np.random.RandomState(sum(shape))
+    a = np.float32(2.0 ** -5)
+    x = rng.randn(*shape).astype(np.float32) * 1.5
+    ties = rng.rand(*shape) < 0.2
+    x[ties] = (rng.randint(-130, 130, ties.sum()) + 0.5) * a
+    x = torch.from_numpy(x).to(cuda, dtype)
+    a_scale = torch.tensor(a, device=cuda)
+    n0 = kernels.int8_quantize.launches
+    got = kernels.int8_quantize(x, a_scale)
+    torch.cuda.synchronize()
+    assert kernels.int8_quantize.launches == n0 + 1
+    assert torch.equal(got, kernels.int8_quantize_plain(x, a_scale))
+
+
+# (N, H, W, Cin, Cout, k, dilation): maps narrower than the 16-column box
+# (8x8, 16x16, 1x1), H*W no multiple of the 128-pixel tile, Cout no
+# multiple of 64 or 128, Cin below one 64-channel slice, dilation 3, 4 and
+# 5 reaching past the map's edges, batch 1; the last two take the
+# 256-column tile
+WGMMA_CASES = ((16, 8, 8, 64, 64, 3, 1), (16, 16, 16, 320, 320, 3, 1),
+               (2, 19, 13, 32, 50, 3, 3), (1, 23, 29, 48, 130, 3, 4),
+               (2, 12, 12, 64, 200, 3, 5), (3, 5, 7, 16, 24, 1, 1),
+               (1, 1, 1, 64, 16, 3, 1), (4, 33, 17, 192, 136, 1, 1),
+               (2, 16, 16, 256, 50, 1, 1), (16, 64, 64, 128, 256, 3, 1),
+               (4, 96, 90, 128, 512, 3, 1))
+IO_MODES = ("float", "int8 in", "int8 out", "int8 in and out")
+
+
+@pytest.mark.parametrize("io", IO_MODES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_int8_conv_cuda_wgmma_route(cuda, case, dtype, io):
+    """The TMA + wgmma route against the plain twin, bit for bit, with
+    float or int8 input and float or requantized int8 output."""
+    n, h, w_, cin, cout, k, dil = case
+    x, w, bias, w_scale, a_scale, pad = (
+        t.to(cuda) if isinstance(t, torch.Tensor) else t
+        for t in _int8_conv_case(k, 1, dil, cin, cout, dtype, seed=sum(case),
+                                 size=(h, w_)))
+    x = x[:1].expand(n, *x.shape[1:]).contiguous() if n > 2 else x[:n].contiguous()
+    relu = (cin + dil) % 2 == 0
+    a_next = torch.tensor(2.0 ** -3, device=cuda) if "out" in io else None
+    if "in" in io:
+        x = kernels.int8_quantize(x, a_scale)
+    args = (w, bias, w_scale, a_scale, 1, pad, dil, relu, dtype, a_next)
+    r0 = kernels.int8_conv.launches_by_route["wgmma"]
+    got = kernels.int8_conv(x, *args)
+    torch.cuda.synchronize()
+    assert kernels.int8_conv.launches_by_route["wgmma"] == r0 + 1
+    want = kernels.int8_conv_plain(x, *args)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def test_int8_conv_cuda_mma_sync_route_refuses_int8(cuda):
+    """Cin 50 takes the mma.sync kernel, which has no int8 input or output."""
+    x, w, bias, w_scale, a_scale, pad = (
+        t.to(cuda) if isinstance(t, torch.Tensor) else t
+        for t in _int8_conv_case(1, 1, 1, 50, 64, torch.bfloat16, seed=5))
+    xq = kernels.int8_quantize(x, a_scale)
+    with pytest.raises(ValueError, match="mma_sync"):
+        kernels.int8_conv(xq, w, bias, w_scale, a_scale, 1, 0, 1, False,
+                          torch.bfloat16)
+    with pytest.raises(ValueError, match="mma_sync"):
+        kernels.int8_conv(x, w, bias, w_scale, a_scale, 1, 0, 1, False,
+                          a_next=a_scale)
+    r0 = dict(kernels.int8_conv.launches_by_route)
+    got = kernels.int8_conv(x, w, bias, w_scale, a_scale, 1, 0, 1, True)
+    torch.cuda.synchronize()
+    assert kernels.int8_conv.launches_by_route["mma_sync"] == r0["mma_sync"] + 1
+    assert torch.equal(got, kernels.int8_conv_plain(x, w, bias, w_scale, a_scale,
+                                                    1, 0, 1, True))
+
+
+def test_probe_int8_conv_variants_match_the_source():
+    """Each text substitution of tools/probe_int8_conv names a line that
+    csrc/int8_conv.cu holds exactly once, so the probe cannot drift from
+    the kernel silently."""
+    from improved_body_parts_tpu_torch.tools import probe_int8_conv as probe
+    with open(probe.SRC) as f:
+        src = f.read()
+    assert set(probe.VARIANTS) == {"kernel", "no_wgmma", "bn128", "deep_ring",
+                                   "tie_call", "one_block", "cvt_round"}
+    for name, subs in probe.VARIANTS.items():
+        for old, _ in subs:
+            assert src.count(old) == 1, name
+    assert all(kernels.int8_conv_route(s[3], s[6]) == ("wgmma" if s[3] % 16 == 0
+                                                       else "mma_sync")
+               for s in probe.SHAPES)
+
+
+@pytest.mark.parametrize("shape", sorted(kernels._MMA_SYNC_FASTER))
+def test_int8_conv_cuda_route_table(cuda, shape):
+    """At a shape of the table a float-in, float-out call takes the mma.sync
+    kernel, and a call with int8 output keeps the wgmma route; both bit
+    for bit."""
+    h, w_, cin, cout, k = shape
+    x, w, bias, w_scale, a_scale, pad = (
+        t.to(cuda) if isinstance(t, torch.Tensor) else t
+        for t in _int8_conv_case(k, 1, 1, cin, cout, torch.bfloat16, seed=cin,
+                                 size=(h, w_)))
+    a_next = torch.tensor(2.0 ** -3, device=cuda)
+    for nxt, route in ((None, "mma_sync"), (a_next, "wgmma")):
+        args = (w, bias, w_scale, a_scale, 1, pad, 1, True, None, nxt)
+        r0 = kernels.int8_conv.launches_by_route[route]
+        got = kernels.int8_conv(x, *args)
+        torch.cuda.synchronize()
+        assert kernels.int8_conv.launches_by_route[route] == r0 + 1
+        assert torch.equal(got, kernels.int8_conv_plain(x, *args))

@@ -2,7 +2,9 @@
 quant modes of ``models/imhn.py``, ``ops.kernels.int8_conv_plain``) against
 the JAX package's (``models/quantize.py``), on the CPU, with the tiny
 PoseNet of tests/test_quantize.py (nstack 2, inp_dim 32, increase 16) at
-64² and weights and BN statistics randomised from a numpy seed.
+64² and weights and BN statistics randomised from a numpy seed; each test
+on the PTQ runs with the Canonical flags, ``extra_attention=True`` and
+``cross_stack=False``.
 
   * ``fold_conv_bn``: every folded tensor within 1e-6 of its scale (the
     same fp32 operations in the same order).
@@ -17,6 +19,8 @@ PoseNet of tests/test_quantize.py (nstack 2, inp_dim 32, increase 16) at
     the span at every output (measured: corr 1 - 1e-15 and the error
     6.0e-8 of the span at worst: no quantized activation differs, what
     remains is the fp32 rounding of the dequantization).
+  * The residual chains passing int8 between their convs equal the
+    unfused chains bit for bit, in fp32 and bf16.
 Then the port's own PTQ against its fp forward (the JAX package's own
 bound, corr > 0.98, error < 15%; measured corr 0.99995, error 0.94% of
 the span), the int8 ``.pth`` round trip and the
@@ -38,7 +42,7 @@ from improved_body_parts_tpu_torch import configs
 from improved_body_parts_tpu_torch.apps import demo_image as tdemo
 from improved_body_parts_tpu_torch.apps import evaluate as tevaluate
 from improved_body_parts_tpu_torch.models import quantize as qz
-from improved_body_parts_tpu_torch.models.imhn import PoseNet
+from improved_body_parts_tpu_torch.models.imhn import PoseNet, QConv2d, Residual
 from improved_body_parts_tpu_torch.ops import kernels
 from improved_body_parts_tpu_torch.utils.checkpoint import (
     flax_to_reference_key, qstate_from_flax, state_dict_from_flax,
@@ -88,12 +92,20 @@ def _conv_names(tree, leaf_key):
     return out
 
 
-@pytest.fixture(scope="module")
-def ptq():
+# the Canonical flags, and the two variants of the live PoseNet that change
+# its graph: an SE layer on each hourglass output, no cross-stack merges
+FLAGS = {"canonical": {}, "extra_attention": dict(extra_attention=True),
+         "no_cross_stack": dict(cross_stack=False)}
+
+
+@pytest.fixture(scope="module", params=list(FLAGS))
+def ptq(request):
     """Both packages' PTQ of the same randomised tiny model on the same
     calibration batch: JAX folded tree, statistics, int8 tree and int8
-    outputs; the port's fp model, folded state and statistics."""
-    jcfg = jconfigs.ModelConfig(**TINY)
+    outputs; the port's fp model, folded state and statistics. Once for
+    each entry of FLAGS."""
+    flags = FLAGS[request.param]
+    jcfg = jconfigs.ModelConfig(**TINY, **flags)
     jmodel = jimhn.create_model(jcfg, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda x: jmodel.init(jax.random.PRNGKey(0), x,
                                                   train=False),
@@ -109,7 +121,7 @@ def ptq():
     jout = run_jitted(lambda p, x: jint8.apply({"params": p}, x, train=False),
                       jq, jnp.asarray(imgs))
 
-    port = PoseNet(configs.ModelConfig(**TINY), compute_dtype=torch.float32,
+    port = PoseNet(configs.ModelConfig(**TINY, **flags), compute_dtype=torch.float32,
                    device="meta").to_empty(device=CPU)
     port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
     folded = qz.fold_conv_bn(port)
@@ -204,6 +216,34 @@ def test_int8_forward_matches_jax_on_the_same_int8_params(ptq):
     torch.testing.assert_close(read_out, got[-1][0], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_int8_fused_links_equal_the_unfused_chain(ptq, dtype):
+    """The residual chains passing int8 (each producer quantizing its
+    output with the consumer's scale) give the same bits as every conv
+    quantizing its own ``dtype`` input, at every output of the forward."""
+    model = qz.make_quant_model(ptq["port"].cfg, "int8", CPU, dtype)
+    model.load_state_dict(qstate_from_flax(ptq["jq"]), strict=True)
+    links = [lk for m in model.modules() if isinstance(m, Residual)
+             for lk in m.int8_links]
+    assert any(links) and not all(links)
+    x = torch.from_numpy(ptq["imgs"])
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda mod, a: calls.append(a[0].dtype))
+             for m in model.modules() if isinstance(m, QConv2d)]
+    with torch.no_grad():
+        fused = model(x)
+        n_int8 = calls.count(torch.int8)
+        qz.set_int8_links(model, False)
+        calls.clear()
+        unfused = model(x)
+    for h in hooks:
+        h.remove()
+    assert n_int8 > 0 and torch.int8 not in calls
+    for fs, us in zip(fused, unfused):
+        for f, u in zip(fs, us):
+            assert f.dtype == torch.float32 and torch.equal(f, u)
+
+
 def test_port_ptq_tracks_the_folded_fp_forward(ptq, qmodel):
     """quantize_model end to end against the fp forward (the JAX package's
     own bound, tests/test_quantize.py)."""
@@ -256,7 +296,7 @@ def test_apps_quantize_int8(ptq, qmodel, tmp_path, monkeypatch, capsys, source):
 
     from improved_body_parts_tpu_torch.apps.evaluate import synthetic_coco
     tiny = configs.CanonicalConfig(width=SIZE, height=SIZE,
-                                   model=configs.ModelConfig(**TINY))
+                                   model=ptq["port"].cfg)
     monkeypatch.setitem(configs.CONFIGS, "QuantTiny", tiny)
     path = str(tmp_path / "fp.pth")
     torch.save({"weights": ptq["port"].state_dict()}, path)
