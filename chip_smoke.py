@@ -25,7 +25,15 @@ bound, the plain version and the unfold + ``torch._int_mm`` route; the
 Canonical post-training quantization (fold, calibrate on 8 synthetic
 scenes), the int8 maps against the bf16 folded maps, the int8 network and
 ``PipelinedServer`` with ``int8_conv`` launched once per conv block per
-batch, and the int8 ``.pth`` served from the file.
+batch, and the int8 ``.pth`` served from the file; then training with the
+device-resident feed and the K-steps dispatch (phase 11): the resident
+preprocessing against the CPU, Canonical resident steps at 512², batch 8,
+eagerly (K = 1) and replayed from a CUDA graph of the captured step
+(K = 4), each with its step time, images/s, busy share, host launch calls
+and memory, graph against eager (bf16 train mode, and bit for bit in fp32
+with frozen BN), the rollback inside a replay, remat and the SWA graph on
+the graph, the dense feed on the graph through the loader, and
+``apps.train --feed resident --steps-per-dispatch 4`` written and resumed.
 
     python3 chip_smoke.py
 
@@ -1461,6 +1469,343 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
     return [quant_row, conv_row], line
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the resident feed and the K-steps dispatch (a CUDA graph)
+# ---------------------------------------------------------------------------
+
+RESIDENT_RECORDS = 64
+DISPATCH_K = 4
+RESIDENT_STEPS = 12          # 4 recorded from the start, then 8 timed
+GRAPH_TOL = 1e-5             # fp32 graph vs eager, if not bit-identical
+# the host's calls that start work on the card, counted by the profiler
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def _events_ms(run, n_steps: int) -> float:
+    """CUDA events around ``run()`` (n_steps steps, no sync inside): the
+    card's wall time a step, host-bound gaps included."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n_steps
+
+
+def _launches_and_busy(run, n_steps: int):
+    """torch.profiler over ``run()``: the host's launch calls a step (by
+    name) and the card's busy ms a step (its kernels' and copies' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    calls = {e.key: e.count / n_steps for e in rows if e.key in LAUNCH_CALLS}
+    busy = sum(e.self_device_time_total for e in rows
+               if e.device_type == DeviceType.CUDA) / 1e3 / n_steps
+    return sum(calls.values()), calls, busy
+
+
+def _state_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in b)
+
+
+def resident_and_dispatch(device, smi) -> dict:
+    """Phase 11: the device-resident feed and the K-steps dispatch, a CUDA
+    graph of the captured train step, at Canonical 512², batch 8, bf16, on
+    a 64-record synthetic store with augmented plans; their checks against
+    eager steps, the shared memory pool, and ``apps.train`` with both."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from improved_body_parts_tpu_torch import train_lib
+    from improved_body_parts_tpu_torch.apps import train as train_app
+    from improved_body_parts_tpu_torch.configs import get_config
+    from improved_body_parts_tpu_torch.data.prefetch import PrefetchingLoader
+    from improved_body_parts_tpu_torch.data.resident import ResidentFeed, build_store
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+    from improved_body_parts_tpu_torch.models.imhn import PoseNet
+    from improved_body_parts_tpu_torch.ops import kernels
+    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+
+    line = {}
+    kernels.reset_launch_counts()
+
+    # -- the resident preprocessing, card against CPU, tiny config ------------
+    tcfg = tiny_train_config(get_config("Canonical"))
+    tiny = build_store(SyntheticDataset(tcfg, length=6, image_size=64))
+    idx, inv_m, _ = next(ResidentFeed(tiny, tcfg).plan_batches(8, 1, seed=4))
+    want = train_lib.resident_inputs(tiny.device_arrays(CPU), torch.from_numpy(idx),
+                                     torch.from_numpy(inv_m), tcfg)
+    got = train_lib.resident_inputs(tiny.device_arrays(device),
+                                    torch.from_numpy(idx).to(device),
+                                    torch.from_numpy(inv_m).to(device), tcfg)
+    err = max_abs_err([g.cpu() for g in got], want)
+    print(f"resident preprocessing (gather, /255, per-sample warp, 4x4 box mean), "
+          f"tiny 64², batch 8, card vs CPU: max abs err {err:.3e} (tolerance 1e-6)",
+          flush=True)
+    if not err <= 1e-6:
+        raise AssertionError("the resident preprocessing on the card disagrees")
+
+    # -- the store and the plans ------------------------------------------------
+    config = get_config("Canonical")
+    t0 = time.perf_counter()
+    store_h = build_store(SyntheticDataset(config, length=RESIDENT_RECORDS,
+                                           image_size=config.height))
+    store = store_h.device_arrays(device)
+    mb = sum(v.numel() for v in store.values()) / 1e6
+    print(f"resident store: {len(store_h)} records at 512², {mb:.1f} MB uint8 on "
+          f"the card, built and copied in {time.perf_counter() - t0:.1f} s", flush=True)
+    plans = list(ResidentFeed(store_h, config, augment=True).plan_batches(
+        TRAIN_BATCH, RESIDENT_STEPS, seed=1))
+    stacked = [torch.from_numpy(np.stack([p[i] for p in plans])).to(device)
+               for i in range(3)]
+    lrs = torch.full((RESIDENT_STEPS,), config.train.learning_rate, device=device)
+
+    def plan(k):
+        return [x[k] for x in stacked]
+
+    def chunk(lo, hi):
+        return [x[lo:hi] for x in stacked]
+
+    g = torch.Generator().manual_seed(SEED)
+    init = PoseNet(config.model, compute_dtype=torch.bfloat16, generator=g).to(
+        device, memory_format=torch.channels_last)
+    pre_ms = device_ms(lambda: train_lib.resident_inputs(store, *plan(0)[:2], config),
+                       runs=5)
+
+    # -- K = 1, eager -----------------------------------------------------------------
+    model = copy.deepcopy(init)
+    state = train_lib.create_train_state(model, config.train)
+    step = train_lib.make_resident_train_step(model, config)
+    eager_losses = [step(state, store, *plan(k), lrs[k])["loss"] for k in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms = _events_ms(lambda: [step(state, store, *plan(k), lrs[k])
+                                   for k in range(4, RESIDENT_STEPS)],
+                          RESIDENT_STEPS - 4)
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eager_calls, eager_by, eager_busy = _launches_and_busy(
+        lambda: [step(state, store, *plan(k), lrs[k]) for k in range(2)], 2)
+    print(f"resident K=1 eager: {eager_ms:.1f} ms a step (CUDA events over "
+          f"{RESIDENT_STEPS - 4} steps) = {TRAIN_BATCH / eager_ms * 1e3:.1f} images/s; "
+          f"card busy {eager_busy:.1f} ms a step ({eager_busy / eager_ms:.3f}); "
+          f"{eager_calls:.0f} host launch calls a step; peak {eager_peak:.2f} GiB; "
+          f"the preprocessing alone {pre_ms:.3f} ms ({pre_ms / eager_busy:.4f} of "
+          f"the busy time) ({smi})", flush=True)
+    eager_losses = torch.stack(eager_losses).float().cpu()
+    line["resident_k1_eager"] = dict(
+        step_ms=eager_ms, images_per_s=TRAIN_BATCH / eager_ms * 1e3,
+        busy_ms=eager_busy, busy=eager_busy / eager_ms, host_launches=eager_calls,
+        peak_gib=eager_peak, preprocess_ms=pre_ms)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # -- K = 4 on the graph, then the SWA graph in the same pool -------------------
+    model = copy.deepcopy(init)
+    state = train_lib.create_train_state(model, config.train)
+    pool = torch.cuda.graph_pool_handle()
+    multi = train_lib.make_multi_resident_train_step(model, config, pool=pool)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph_losses = multi(state, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K])["loss"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    capture_s = multi.graphed.capture_seconds
+    graph_ms = _events_ms(lambda: [multi(state, store, *chunk(lo, lo + DISPATCH_K),
+                                         lrs[lo:lo + DISPATCH_K])
+                                   for lo in range(DISPATCH_K, RESIDENT_STEPS, DISPATCH_K)],
+                          RESIDENT_STEPS - DISPATCH_K)
+    graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    graph_calls, graph_by, graph_busy = _launches_and_busy(
+        lambda: multi(state, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K]), DISPATCH_K)
+    graph_losses = graph_losses.float().cpu()
+    torch.cuda.empty_cache()
+    one_reserved = torch.cuda.memory_reserved() / 2 ** 30
+    print(f"resident K={DISPATCH_K} on the CUDA graph: {graph_ms:.1f} ms a step (CUDA "
+          f"events over {RESIDENT_STEPS - DISPATCH_K} steps) = "
+          f"{TRAIN_BATCH / graph_ms * 1e3:.1f} images/s; card busy "
+          + (f"{graph_busy:.1f} ms a step ({graph_busy / graph_ms:.3f})" if graph_busy
+             else "not seen by the profiler inside the graph")
+          + f"; {graph_calls:.1f} host launch calls a step "
+          f"({', '.join(f'{k} {v:g}' for k, v in sorted(graph_by.items()))}) against "
+          f"{eager_calls:.0f} eager; peak {graph_peak:.2f} GiB allocated (warm-up "
+          f"and capture included), {one_reserved:.2f} GiB reserved after; capture "
+          f"{capture_s:.2f} s (first call, warm-up and 4 replays included, "
+          f"{first_s:.2f} s) ({smi})", flush=True)
+    print(f"  bf16 train-mode losses of the first 4 steps from one state and one "
+          f"set of plans, eager / graph: "
+          + "; ".join(f"{a:.6f} / {b:.6f}" for a, b in zip(eager_losses.tolist(),
+                                                          graph_losses.tolist()))
+          + f" (max rel diff {float(((graph_losses - eager_losses).abs() / eager_losses.abs()).max()):.2e})",
+          flush=True)
+    if not torch.isfinite(graph_losses).all():
+        raise AssertionError("non-finite loss on the graph")
+    line[f"resident_k{DISPATCH_K}_graph"] = dict(
+        step_ms=graph_ms, images_per_s=TRAIN_BATCH / graph_ms * 1e3,
+        busy_ms=graph_busy, busy=graph_busy / graph_ms, host_launches=graph_calls,
+        peak_gib=graph_peak, reserved_gib=one_reserved, capture_s=capture_s,
+        eager_losses=eager_losses.tolist(), graph_losses=graph_losses.tolist())
+
+    swa = train_lib.make_multi_resident_train_step(model, config, freeze_bn=True,
+                                                   pool=pool)
+    torch.cuda.reset_peak_memory_stats()
+    swa(state, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K])
+    multi(state, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K])
+    torch.cuda.synchronize()
+    both_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    both_reserved = torch.cuda.memory_reserved() / 2 ** 30
+    print(f"train-mode and SWA (frozen BN) graphs in one pool, both captured and "
+          f"replayed: {both_reserved:.2f} GiB reserved (one graph: "
+          f"{one_reserved:.2f}); peak {both_peak:.2f} GiB allocated, the SWA "
+          f"graph's warm-up and capture included ({smi})", flush=True)
+    line["train_and_swa_graphs"] = dict(reserved_gib=both_reserved,
+                                        peak_gib=both_peak)
+
+    # -- the abnormal-loss rollback inside a replay ----------------------------------
+    bad = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, abnormal_loss_thresh=1e-9))
+    bmulti = train_lib.make_multi_resident_train_step(model, bad, pool=pool)
+    before = _train_state_tensors(state)
+    met = bmulti(state, store, *chunk(0, 2), lrs[:2])
+    after = _train_state_tensors(state)
+    if met["skipped"].tolist() != [1.0, 1.0] or not _state_equal(after, before):
+        raise AssertionError("a replayed step with an abnormal loss moved the state")
+    print(f"rollback inside a replay: abnormal_loss_thresh 1e-9, 2 replayed steps -> "
+          f"skipped [1, 1], {len(before)} parameters, momentum buffers and BN "
+          "statistics bit-identical", flush=True)
+    del model, state, multi, swa, bmulti, before, after, pool
+    torch.cuda.empty_cache()
+
+    # -- remat on the graph ------------------------------------------------------------
+    rcfg = dataclasses.replace(config, model=dataclasses.replace(config.model,
+                                                                 remat=True))
+    remat = PoseNet(rcfg.model, compute_dtype=torch.bfloat16, device="meta")
+    remat = remat.to_empty(device=device).to(memory_format=torch.channels_last)
+    remat.load_state_dict(init.state_dict())
+    rstate = train_lib.create_train_state(remat, rcfg.train)
+    rmulti = train_lib.make_multi_resident_train_step(remat, rcfg)
+    torch.cuda.reset_peak_memory_stats()
+    rlosses = rmulti(rstate, store, *chunk(0, 2), lrs[:2])["loss"].float().cpu()
+    remat_ms = _events_ms(lambda: rmulti(rstate, store, *chunk(2, 4), lrs[2:4]), 2)
+    remat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"remat on the graph (K=2): {remat_ms:.1f} ms a step, peak "
+          f"{remat_peak:.2f} GiB, losses {[round(x, 6) for x in rlosses.tolist()]} "
+          f"(eager without remat: {[round(x, 6) for x in eager_losses[:2].tolist()]}) "
+          f"({smi})", flush=True)
+    if not torch.isfinite(rlosses).all():
+        raise AssertionError("remat on the graph: non-finite loss")
+    line["remat_k2_graph"] = dict(step_ms=remat_ms, peak_gib=remat_peak)
+    del remat, rstate, rmulti
+    torch.cuda.empty_cache()
+
+    # -- graph against eager, fp32, frozen BN, deterministic cuDNN ---------------------
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for graphed in (False, True):
+        m = copy.deepcopy(init)
+        m.compute_dtype = torch.float32
+        st = train_lib.create_train_state(m, config.train)
+        if graphed:
+            met = train_lib.make_multi_resident_train_step(m, config, freeze_bn=True)(
+                st, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K])
+        else:
+            fstep = train_lib.make_resident_train_step(m, config, freeze_bn=True)
+            mets = [fstep(st, store, *plan(k), lrs[k]) for k in range(DISPATCH_K)]
+            met = {k: torch.stack([x[k] for x in mets]) for k in mets[0]}
+        runs.append(({k: v.cpu() for k, v in met.items()},
+                     {k: v.cpu() for k, v in _train_state_tensors(st).items()}))
+        del m, st, met
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    (me, se), (mg, sg) = runs
+    identical = _state_equal(sg, se) and all(torch.equal(mg[k], me[k]) for k in me)
+    rel = _rel_err(sg, se)
+    print(f"fp32, frozen BN, {DISPATCH_K} steps from one state and one set of plans, "
+          f"graph against eager: {'bit-identical' if identical else 'not bit-identical'}"
+          f" ({len(se)} tensors; largest relative difference {rel:.2e}, tolerance "
+          f"{GRAPH_TOL}); losses {me['loss'].tolist()} / {mg['loss'].tolist()}",
+          flush=True)
+    if not (identical or rel <= GRAPH_TOL):
+        raise AssertionError("the graph's steps disagree with eager steps")
+    line["fp32_frozen_graph_vs_eager"] = dict(bit_identical=identical, max_rel=rel)
+    del runs
+
+    # -- the dense wire feed, K = 4 on the graph, through the loader and staging -------
+    model = copy.deepcopy(init)
+    state = train_lib.create_train_state(model, config.train)
+    dmulti = train_lib.make_multi_train_step(model, config)
+    loader = PrefetchingLoader(SyntheticDataset(config, length=64,
+                                                image_size=config.height),
+                               num_workers=6)
+    n_dense = 4 * DISPATCH_K
+    with_lr = ((*b, np.asarray(config.train.learning_rate, np.float32))
+               for b in loader.batches(TRAIN_BATCH, n_dense, seed=1))
+    dense_losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i, (n, c) in enumerate(train_app.staged_chunks(with_lr, device, DISPATCH_K)):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        dense_losses.append(dmulti(state, *c)["loss"])
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) / (n_dense - DISPATCH_K) * 1e3
+    dense_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    dense_reserved = torch.cuda.memory_reserved() / 2 ** 30
+    dense_losses = torch.cat(dense_losses).float().cpu()
+    if dense_losses.shape != (n_dense,) or not torch.isfinite(dense_losses).all():
+        raise AssertionError("dense feed on the graph: bad losses")
+    print(f"dense wire feed, K={DISPATCH_K} on the graph, PrefetchingLoader (6 "
+          f"workers) and staged_chunks: {dense_ms:.1f} ms a step after the capture "
+          f"chunk (host clock) = {TRAIN_BATCH / dense_ms * 1e3:.1f} images/s; peak "
+          f"{dense_peak:.2f} GiB allocated (warm-up and capture included), "
+          f"{dense_reserved:.2f} GiB reserved after ({smi})", flush=True)
+    line[f"dense_k{DISPATCH_K}_graph"] = dict(
+        e2e_ms=dense_ms, images_per_s=TRAIN_BATCH / dense_ms * 1e3,
+        peak_gib=dense_peak, reserved_gib=dense_reserved)
+    del model, state, dmulti, loader
+    torch.cuda.empty_cache()
+
+    # -- the trainer: --feed resident --steps-per-dispatch 4, write and resume --------
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--feed", "resident", "--resident-augment", "--steps-per-dispatch",
+                str(DISPATCH_K), "--epochs", "1", "--steps-per-epoch", "8",
+                "--batch-size", str(TRAIN_BATCH), "--synthetic-length",
+                str(RESIDENT_RECORDS), "--print-freq", "4", "-p", tmp]
+        t0 = time.perf_counter()
+        if train_app.main(argv) != 0:
+            raise AssertionError("apps.train --feed resident failed")
+        first = ckpt.restore_train_state(os.path.join(tmp, "pth"))
+        argv[argv.index("--epochs") + 1] = "2"
+        if train_app.main(argv + ["-r"]) != 0:
+            raise AssertionError("apps.train -r failed")
+        resumed = ckpt.restore_train_state(os.path.join(tmp, "pth"))
+        if (first["step"], resumed["step"], resumed["epoch"]) != (8, 16, 1):
+            raise AssertionError(f"the trainer's checkpoints: steps {first['step']}, "
+                                 f"{resumed['step']}, epoch {resumed['epoch']}")
+        print(f"apps.train --feed resident --resident-augment --steps-per-dispatch "
+              f"{DISPATCH_K}: epoch 0 (8 steps) written, resumed with -r for epoch 1 "
+              f"(step {resumed['step']}), in {time.perf_counter() - t0:.1f} s", flush=True)
+    line["hand_kernel_launches"] = {k: getattr(kernels, k).launches
+                                    for k in ("nms", "fused_peaks", "int8_quantize",
+                                              "int8_conv")}
+    if any(line["hand_kernel_launches"].values()):
+        raise AssertionError("the training path launched a serving kernel")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1662,6 +2007,12 @@ def main() -> int:
                                 net_ms)
     kernel_rows += int8_rows
     print(json.dumps({"variants": variant_line, "int8": int8_line}), flush=True)
+
+    # -- 11: the resident feed and the K-steps dispatch --------------------------------
+    phase(f"11 resident feed and multi-step dispatch: Canonical 512², batch "
+          f"{TRAIN_BATCH}, K={DISPATCH_K} on a CUDA graph")
+    print(json.dumps({"resident_and_dispatch": resident_and_dispatch(device, smi)}),
+          flush=True)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 It serves (batched flip-TTA behind ``PipelinedServer``, multi-scale and
 rotation TTA, the demo and evaluate entry points), trains (loss, train-mode
-BatchNorm, the SGD step, GT rendered on the device, checkpoints,
-``apps/train.py``), quantizes to int8 after training (fold, calibrate,
+BatchNorm, the SGD step, GT rendered on the device, the device-resident
+feed with its augmentation on the card, K steps a dispatch replayed from a
+CUDA graph of the captured step, checkpoints, ``apps/train.py``), quantizes to int8 after training (fold, calibrate,
 int8 serving) and builds every model variant of the JAX package
 (``extra_attention``, ``cross_stack=False``, ``IndependentPoseNet``,
 ``AEPoseNet``).
@@ -22,7 +23,8 @@ the hand-written CUDA kernels ``nms``, ``fused_peaks``, ``int8_quantize``
 and ``int8_conv`` and their build), ``infer/`` (the ``Predictor`` and
 ``PipelinedServer``), ``apps/`` (the demo, evaluate and train entry
 points), ``data/`` (synthetic scenes, their ground-truth maps and the
-training feeds), ``utils/`` (device, checkpoint, drawing and OKS evaluation
+training feeds, the resident store among them), ``train_lib`` and
+``train_graph`` (the train steps and their CUDA-graph dispatch), ``utils/`` (device, checkpoint, drawing and OKS evaluation
 helpers), ``tools/`` (the int8 kernel's probe) and ``csrc/`` (the CUDA and
 C++ sources).
 """

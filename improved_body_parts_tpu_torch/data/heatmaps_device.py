@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from improved_body_parts_tpu_torch.configs import (
     BKG_START, HEAT_START, LIMBS_CONN, NUM_PARTS, CanonicalConfig,
 )
+from improved_body_parts_tpu_torch.utils.device import constant
 
 
 def erode3_device(mask: torch.Tensor) -> torch.Tensor:
@@ -73,6 +74,23 @@ class DeviceHeatmapper:
             + self.stride / 2 - 0.5
         self.limbs_from = np.asarray([fr for fr, _ in LIMBS_CONN])
         self.limbs_to = np.asarray([to for _, to in LIMBS_CONN])
+        self._constants = {}
+
+    def constants(self, dev: torch.device, dt: torch.dtype) -> tuple:
+        """The grid (gx, gy, ix, iy) and the limbs' end indices on ``dev``,
+        made on the first call for each (device, dtype) and kept: a copy
+        from the host inside the step could not be captured in a CUDA
+        graph."""
+        key = (dev, dt)
+        if key not in self._constants:
+            self._constants[key] = (
+                constant(self.grid_x, dev).to(dt),
+                constant(self.grid_y, dev).to(dt),
+                torch.arange(self.w, dtype=dt, device=dev),
+                torch.arange(self.h, dtype=dt, device=dev),
+                constant(self.limbs_from, dev),
+                constant(self.limbs_to, dev))
+        return self._constants[key]
 
     # ------------------------------------------------------------------
     def _person_kp(self, pts, vis, gx, gy, ix, iy):
@@ -87,11 +105,11 @@ class DeviceHeatmapper:
         g = (ey * win_y)[..., :, None] * (ex * win_x)[..., None, :]
         return g * vis[..., None, None]
 
-    def _person_limbs(self, pts, vis, X, Y, ix, iy):
+    def _person_limbs(self, pts, vis, X, Y, ix, iy, limbs_from, limbs_to):
         """(B,18,2)+(B,18) -> ((B,30,h,w) floored gaussians, (B,30,h,w) window)."""
-        p1 = pts[:, self.limbs_from]                           # (B,30,2)
-        p2 = pts[:, self.limbs_to]
-        valid = vis[:, self.limbs_from] & vis[:, self.limbs_to]
+        p1 = pts[:, limbs_from]                                # (B,30,2)
+        p2 = pts[:, limbs_to]
+        valid = vis[:, limbs_from] & vis[:, limbs_to]
         x1, y1 = p1[..., 0], p1[..., 1]
         x2, y2 = p2[..., 0], p2[..., 1]
         dx, dy = x2 - x1, y2 - y1
@@ -128,10 +146,7 @@ class DeviceHeatmapper:
         joints = joints.to(dt)
         dev = joints.device
         B = joints.shape[0]
-        gx = torch.from_numpy(self.grid_x).to(dev, dt)
-        gy = torch.from_numpy(self.grid_y).to(dev, dt)
-        ix = torch.arange(self.w, dtype=dt, device=dev)
-        iy = torch.arange(self.h, dtype=dt, device=dev)
+        gx, gy, ix, iy, limbs_from, limbs_to = self.constants(dev, dt)
         X, Y = gx, gy[:, None]                                  # (w,), (h, 1)
         n_limbs = len(self.limbs_from)
         kp = torch.zeros((B, NUM_PARTS, self.h, self.w), dtype=dt, device=dev)
@@ -140,7 +155,8 @@ class DeviceHeatmapper:
         for p in range(joints.shape[1]):
             pts, vis = joints[:, p, :, :2], joints[:, p, :, 2] < 2
             kp = torch.maximum(kp, self._person_kp(pts, vis, gx, gy, ix, iy))
-            g, win = self._person_limbs(pts, vis, X, Y, ix, iy)
+            g, win = self._person_limbs(pts, vis, X, Y, ix, iy, limbs_from,
+                                        limbs_to)
             acc = acc + g
             cnt = cnt + win
 

@@ -9,8 +9,9 @@ mask_miss (H/4,W/4,1), heatmaps (H/4,W/4,50).
 
 The port's copy of ``improved_body_parts_tpu/data/synthetic.py``:
 ``random_people``, ``render_image`` and ``SyntheticDataset`` with the
-trainer's feeds, ``__getitem__`` (dense) and ``get_compact``, and
-``batches`` (the device-resident feed of the JAX trainer is not ported).
+trainer's feeds: ``__getitem__`` (dense), ``get_compact``, ``batches`` and
+``resident_raw`` (the record of the device-resident feed,
+``data/resident.py``).
 The compact feed's bf16 arrays are torch tensors (numpy has no bf16): the
 fp32 -> bf16 conversion rounds to nearest even, as ``ml_dtypes`` does.
 """
@@ -134,6 +135,17 @@ class SyntheticDataset:
             img = img.to(bf16)
         return (img, mask, (torch.from_numpy(pad_people(joints, max_people)),
                             mask_all))
+
+    def resident_raw(self, idx: int):
+        """(image uint8, joints (n,18,3)) for the device-resident feed
+        (data/resident.build_store): the raw fixed-size record, no GT —
+        masks are implicit ones and the gaussians rasterize on the device."""
+        rng = np.random.RandomState(self.seed * 100003 + idx)
+        H = W = self.size
+        joints = random_people(rng, H, W)
+        img = render_image(joints, H, W, rng)
+        return (np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8),
+                joints)
 
     def batches(self, batch_size: int, steps: int, seed: int = 0,
                 rank: int = 0, world: int = 1, compact: bool = False,

@@ -25,6 +25,7 @@ float64 model's loss stays float64).
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 from improved_body_parts_tpu_torch.configs import (
     BKG_START, HEAT_START, NUM_LAYERS, TrainConfig,
 )
+from improved_body_parts_tpu_torch.utils.device import constant
 
 
 def channel_weights(multi_task_weight: float, keypoint_task_weight: float,
@@ -42,6 +44,21 @@ def channel_weights(multi_task_weight: float, keypoint_task_weight: float,
     w[HEAT_START:BKG_START] *= keypoint_task_weight
     w[BKG_START] *= multi_task_weight            # channel -2: person mask
     return w
+
+
+@functools.lru_cache(maxsize=64)
+def _weights(values: tuple, device: torch.device,
+             dtype: torch.dtype) -> torch.Tensor:
+    """A constant weight vector on ``device``, made once and kept: a copy
+    from the host inside the train step could not be captured in a CUDA
+    graph. Callers must not write to it."""
+    return constant(values, device, dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _channel_weights(multi_task_weight: float, keypoint_task_weight: float,
+                     device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return channel_weights(multi_task_weight, keypoint_task_weight, device, dtype)
 
 
 def avg_pool_to(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -93,8 +110,8 @@ def offset_l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
 
     pred/gt/mask: (nstack, N, h, w, 2). Returns a scalar."""
     per_stack = (torch.abs(pred - gt) * mask).sum(dim=(1, 2, 3, 4))
-    nw = torch.tensor(nstack_weight[:pred.shape[0]], dtype=torch.float32,
-                      device=pred.device)
+    nw = _weights(tuple(nstack_weight[:pred.shape[0]]), pred.device,
+                  torch.float32)
     return torch.sum(per_stack * nw) / torch.sum(nw)
 
 
@@ -116,10 +133,10 @@ def multi_task_loss(preds: Sequence[Sequence[torch.Tensor]],
     # smaller model variants (fewer stacks/scales) use the leading weights
     device = gt_heatmaps.device
     dt = torch.promote_types(preds[0][0].dtype, torch.float32)
-    nw = torch.tensor(cfg.nstack_weight[:nstack], dtype=dt, device=device)
-    sw = torch.tensor(cfg.scale_weight[:num_scales], dtype=dt, device=device)
-    ch_w = channel_weights(cfg.multi_task_weight, cfg.keypoint_task_weight,
-                           device, dt)
+    nw = _weights(tuple(cfg.nstack_weight[:nstack]), device, dt)
+    sw = _weights(tuple(cfg.scale_weight[:num_scales]), device, dt)
+    ch_w = _channel_weights(cfg.multi_task_weight, cfg.keypoint_task_weight,
+                            device, dt)
     gt_heatmaps = gt_heatmaps.to(dt)
     mask_miss = mask_miss.to(dt)
     batch = gt_heatmaps.shape[0]

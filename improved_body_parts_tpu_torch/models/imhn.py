@@ -470,7 +470,9 @@ class PoseNet(_PoseNetBase):
         caches: List[Optional[torch.Tensor]] = [None] * cfg.num_scales
         # remat: each hourglass is recomputed in the backward pass (the JAX
         # model's nn.remat over Hourglass); the recompute records the same
-        # batch statistics again under the same keys
+        # batch statistics again under the same keys. The network draws no
+        # random numbers, so no RNG state is saved for the recompute (which
+        # a step captured in a CUDA graph could not read)
         remat = cfg.remat and torch.is_grad_enabled()
         # without cross-stack merges no stack feeds the next, so the serving
         # read-out needs the last stack alone
@@ -479,7 +481,7 @@ class PoseNet(_PoseNetBase):
             last = t == cfg.nstack - 1
             if remat:
                 hg = checkpoint(self.hourglass[t], x, bn_stats,
-                                use_reentrant=False)
+                                use_reentrant=False, preserve_rng_state=False)
             else:
                 hg = self.hourglass[t](x, bn_stats)
             # the last stack's coarser scales feed nothing when only the

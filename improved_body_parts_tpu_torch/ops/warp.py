@@ -1,5 +1,6 @@
 """Resizing and bilinear affine warping of image batches, for multi-scale
-and rotation TTA.
+and rotation TTA, and for the resident training feed's augmentation (one
+map a sample, ``data/resident.py``).
 
 Port of ``improved_body_parts_tpu/ops/warp.py``. The JAX functions take one
 (H, W, C) array and are ``vmap``ped; these take (..., H, W, C) with any
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from improved_body_parts_tpu_torch.ops.peaks import resize1d_cubic_matrix
+from improved_body_parts_tpu_torch.utils.device import constant
 
 
 def rotation_matrix(center_xy, angle_deg: float, scale: float = 1.0) -> np.ndarray:
@@ -51,21 +53,40 @@ def resize_cubic_cv2(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return torch.einsum("wk,...hwc->...hkc", mx, out)
 
 
-def affine_warp(img: torch.Tensor, inv_m: np.ndarray, fill_value=0.0,
+@functools.lru_cache(maxsize=64)
+def _fill(values: tuple, shape: tuple, device: torch.device,
+          dtype: torch.dtype) -> torch.Tensor:
+    return constant(values, device, dtype).reshape(shape)
+
+
+def affine_warp(img: torch.Tensor, inv_m, fill_value=0.0,
                 out_hw=None) -> torch.Tensor:
     """Warp (..., H, W, C) by the inverse map ``inv_m`` (output -> input
-    coords), bilinear, constant fill outside. ``fill_value`` is a scalar or
-    a (C,) vector (cv2's per-channel borderValue); ``out_hw`` sets the
-    output canvas (default: the input's)."""
+    coords), bilinear, constant fill outside. ``inv_m`` is one (2, 3) numpy
+    map for every leading index, the sample coordinates in fp32; or a
+    (B, 2, 3) tensor of maps for images (B, H, W, C), one a sample, read
+    where it lies (no trip through the host), the coordinates in its type
+    (fp32, or float64 for a float64 reference). ``fill_value`` is a scalar
+    or a (C,) vector (cv2's per-channel borderValue), kept on the device
+    once per value; ``out_hw`` sets the output canvas (default: the
+    input's)."""
     lead = img.shape[:-3]
     h, w, c = img.shape[-3:]
     oh, ow = out_hw or (h, w)
     dev = img.device
-    m = torch.as_tensor(np.asarray(inv_m, np.float32), device=dev)
+    per_sample = isinstance(inv_m, torch.Tensor)
+    if per_sample:
+        if len(lead) != 1 or inv_m.shape != (lead[0], 2, 3):
+            raise ValueError(f"maps of shape {tuple(inv_m.shape)} for images "
+                             f"{tuple(img.shape)}: want one (2, 3) map a sample")
+        # (2, 3, B, 1, 1): m[i, j] broadcasts over each sample's canvas
+        m = inv_m.to(dev).permute(1, 2, 0)[..., None, None]
+    else:
+        m = torch.as_tensor(np.asarray(inv_m, np.float32), device=dev)
     yy, xx = torch.meshgrid(torch.arange(oh, device=dev, dtype=torch.int32),
                             torch.arange(ow, device=dev, dtype=torch.int32),
                             indexing="ij")
-    xx, yy = xx.float(), yy.float()
+    xx, yy = xx.to(m.dtype), yy.to(m.dtype)
     xs = m[0, 0] * xx + m[0, 1] * yy + m[0, 2]
     ys = m[1, 0] * xx + m[1, 1] * yy + m[1, 2]
     inb = (xs >= 0) & (xs <= w - 1) & (ys >= 0) & (ys <= h - 1)
@@ -78,8 +99,12 @@ def affine_warp(img: torch.Tensor, inv_m: np.ndarray, fill_value=0.0,
     fx = (xc - x0)[..., None]
     fy = (yc - y0)[..., None]
     flat = img.reshape(-1, h, w, c)
-    v = (flat[:, y0, x0] * (1 - fx) * (1 - fy) + flat[:, y0, x1] * fx * (1 - fy)
-         + flat[:, y1, x0] * (1 - fx) * fy + flat[:, y1, x1] * fx * fy)
-    fill = torch.as_tensor(fill_value, dtype=v.dtype, device=dev)
+    # one map for all: every image at the same cells; else each at its own
+    b = (torch.arange(flat.shape[0], device=dev)[:, None, None] if per_sample
+         else slice(None))
+    v = (flat[b, y0, x0] * (1 - fx) * (1 - fy) + flat[b, y0, x1] * fx * (1 - fy)
+         + flat[b, y1, x0] * (1 - fx) * fy + flat[b, y1, x1] * fx * fy)
+    fill = np.asarray(fill_value, np.float64)
+    fill = _fill(tuple(fill.ravel().tolist()), fill.shape, dev, v.dtype)
     out = torch.where(inb[..., None], v, fill)
     return out.reshape(*lead, oh, ow, c)

@@ -20,7 +20,17 @@ train_distributed_SWA.py) as one functional step:
 
 The state is updated in place (the JAX step returns a new state); metrics
 (``loss``, ``grad_norm``, ``skipped``) stay on the device until the caller
-fetches them. One card; multi-GPU DDP with SyncBatchNorm is not ported.
+fetches them. The step reads no value from the host and copies nothing
+from it (the learning rate is a 0-d tensor on the device, the loss's and
+the GT renderer's constants are made once), so it can be captured in a
+CUDA graph (``train_graph.py``).
+
+Also ported (:177-322): the step of the device-resident feed
+(``make_resident_train_step``, ``data/resident.py``), whose preprocessing
+``resident_inputs`` gathers, warps and decimates on the device, and the
+K-steps-per-dispatch functions (``make_multi_train_step``,
+``make_multi_resident_train_step``), a CUDA graph of the captured step on
+the card. One card; multi-GPU DDP with SyncBatchNorm is not ported.
 """
 
 from __future__ import annotations
@@ -28,10 +38,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from improved_body_parts_tpu_torch.configs import CanonicalConfig, TrainConfig
+from improved_body_parts_tpu_torch.data.resident import BORDER_BGR
 from improved_body_parts_tpu_torch.losses import multi_task_loss
+from improved_body_parts_tpu_torch.ops.warp import affine_warp
+from improved_body_parts_tpu_torch.train_graph import MultiStep
 
 BN_MOMENTUM = 0.9        # Flax decay 0.9 == torch momentum 0.1
 
@@ -89,6 +103,16 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def _lr_tensor(lr, ref: torch.Tensor) -> torch.Tensor:
+    """``lr`` (a float, or a 0-d tensor) as a 0-d tensor on ``ref``'s
+    device in ``ref``'s float type (at least fp32). A float is written by a
+    fill on the device, not copied from the host."""
+    dt = torch.promote_types(ref.dtype, torch.float32)
+    if isinstance(lr, torch.Tensor):
+        return lr.to(ref.device, dt)
+    return torch.full((), lr, dtype=dt, device=ref.device)
+
+
 def _select_(ok: torch.Tensor, new: List[torch.Tensor],
              old: List[torch.Tensor]) -> None:
     """old <- where(ok, new, old), in place, on the device."""
@@ -104,7 +128,10 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     imgs: (B, H, W, 3) float in [0, 1], or uint8 (normalized in the step as
     ``float32 / 255``); mask: (B, H/4, W/4, 1); heat: (B, H/4, W/4, 50) —
     or, with ``compact_gt``, the pair (joints (B,P,18,3), mask_all (B,h,w))
-    rasterized on the device (data/heatmaps_device.py). ``lr`` is a float.
+    rasterized on the device (data/heatmaps_device.py). ``lr`` is a 0-d
+    tensor (or a float); the update is ``p + (-lr * u)``, as optax applies
+    it, from the same kernels whether the step runs eagerly or replays in a
+    CUDA graph.
     ``freeze_bn`` runs BatchNorm in inference mode and keeps the running
     statistics fixed (the reference's SWA epochs, train_distributed_SWA.py:221).
     ``state`` is updated in place; the returned metrics are 0-d tensors on
@@ -119,7 +146,7 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     names = [k for k, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
 
-    def step_fn(state: TrainState, imgs, mask, heat, lr: float):
+    def step_fn(state: TrainState, imgs, mask, heat, lr):
         if state.model is not model:
             raise ValueError("the state belongs to another model")
         if imgs.dtype == torch.uint8:
@@ -142,7 +169,8 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
             # optax add_decayed_weights then trace: u = g + wd*p; m' = u + 0.9*m
             upd = torch._foreach_add(grads, params, alpha=tcfg.weight_decay)
             torch._foreach_add_(upd, moms, alpha=tcfg.momentum)
-            new_params = torch._foreach_add(params, upd, alpha=-lr)
+            neg_lr = -_lr_tensor(lr, params[0])
+            new_params = torch._foreach_add(params, torch._foreach_mul(upd, neg_lr))
 
             # abnormal-loss batch drop: keep everything unchanged on explosion
             ok = torch.isfinite(loss) & (loss <= tcfg.abnormal_loss_thresh)
@@ -157,6 +185,93 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
                 "skipped": (~ok).float()}
 
     return step_fn
+
+
+def resident_inputs(store: Dict[str, torch.Tensor], idx: torch.Tensor,
+                    inv_m: torch.Tensor, cfg: CanonicalConfig,
+                    dtype: torch.dtype = torch.float32) -> tuple:
+    """The resident feed's preprocessing, on the store's device
+    (JAX ``train_lib._build_resident_fn``): gather the records ``idx`` (B,)
+    from the uint8 ``store`` (``data/resident.ResidentStore.device_arrays``;
+    never written), normalize (/ 255), warp each sample by its inverse map
+    ``inv_m`` (B, 2, 3) onto the (H, W) canvas of ``cfg``, filled with the
+    reference's border colours (py_data_transformer.py:118-129):
+    (124, 127, 127) / 255 for the image, 1 for ``mask_miss``, 0 for
+    ``mask_all``; then decimate the masks to stride resolution by an exact
+    box mean (cv2 INTER_AREA at an integer factor). A mask the store lacks
+    is ones. Returns (images (B, H, W, 3), mask_miss (B, h, w, 1),
+    mask_all (B, h, w)) in ``dtype``: fp32 as the JAX package computes
+    them, or float64 for a float64 reference model."""
+    H, W, s = cfg.height, cfg.width, cfg.stride
+    h4, w4 = H // s, W // s
+    B = idx.shape[0]
+    inv_m = inv_m.to(dtype)
+
+    def gather(key):
+        return store[key].index_select(0, idx).to(dtype) / 255.0
+
+    def mask(key, fill):
+        if key not in store:
+            return torch.ones((B, h4, w4), dtype=dtype, device=idx.device)
+        m = affine_warp(gather(key)[..., None], inv_m, fill_value=fill,
+                        out_hw=(H, W))[..., 0]
+        return m.reshape(B, h4, s, w4, s).mean(dim=(2, 4))
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    border = np.asarray(BORDER_BGR, np_dtype) / np_dtype(255)
+    imgs = affine_warp(gather("images"), inv_m, fill_value=border,
+                       out_hw=(H, W))
+    return imgs, mask("mask_miss", 1.0)[..., None], mask("mask_all", 0.0)
+
+
+def make_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
+                             use_focal: bool = True, freeze_bn: bool = False):
+    """The train step of the device-resident feed (``data/resident.py``):
+    ``(state, store, idx, inv_m, joints, lr) -> metrics``, where ``store``
+    is the dict of uint8 arrays on the device, ``idx`` (B,) the records,
+    ``inv_m`` (B, 2, 3) the inverse augmentation maps (identity when
+    unaugmented) and ``joints`` (B, P, 18, 3) the joints warped on the host.
+    ``resident_inputs`` (fp32; float64 for a float64 model), then the
+    compact-GT step of ``make_train_step``.
+    reference: JAX ``train_lib.make_resident_train_step``."""
+    step = make_train_step(model, cfg, use_focal=use_focal,
+                           freeze_bn=freeze_bn, compact_gt=True)
+    dtype = torch.promote_types(next(model.parameters()).dtype, torch.float32)
+
+    def resident_fn(state: TrainState, store, idx, inv_m, joints, lr):
+        imgs, mask_miss, mask_all = resident_inputs(store, idx, inv_m, cfg, dtype)
+        return step(state, imgs, mask_miss, (joints, mask_all), lr)
+
+    return resident_fn
+
+
+def make_multi_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
+                          use_focal: bool = True, freeze_bn: bool = False,
+                          compact_gt: bool = False, pool=None) -> MultiStep:
+    """n train steps a call: ``(state, imgs, mask, heat, lr) -> metrics``,
+    where every input carries a leading step axis of length n (imgs (n, B,
+    H, W, 3), ``lr`` (n,)) and the metrics come back stacked (n,). On the
+    card the step is captured once in a CUDA graph and replayed n times;
+    ``pool`` (``torch.cuda.graph_pool_handle()``) is the memory pool the
+    graph shares, e.g. with the SWA epochs' graph. On the CPU, n eager
+    steps. reference: JAX ``train_lib.make_multi_train_step`` (one
+    ``lax.scan`` of the n steps)."""
+    return MultiStep(make_train_step(model, cfg, use_focal=use_focal,
+                                     freeze_bn=freeze_bn, compact_gt=compact_gt),
+                     n_fixed=0, pool=pool)
+
+
+def make_multi_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
+                                   use_focal: bool = True, freeze_bn: bool = False,
+                                   pool=None) -> MultiStep:
+    """n resident train steps a call: ``(state, store, idx (n, B), inv_m
+    (n, B, 2, 3), joints (n, B, P, 18, 3), lr (n,)) -> metrics`` stacked
+    (n,), each step gathering from the same store; on the card a CUDA graph
+    as ``make_multi_train_step``. reference: JAX
+    ``train_lib.make_multi_resident_train_step``."""
+    return MultiStep(make_resident_train_step(model, cfg, use_focal=use_focal,
+                                              freeze_bn=freeze_bn),
+                     n_fixed=1, pool=pool)
 
 
 def make_eval_step(model: torch.nn.Module, cfg: CanonicalConfig,
