@@ -33,12 +33,25 @@ eagerly (K = 1) and replayed from a CUDA graph of the captured step
 and memory, graph against eager (bf16 train mode, and bit for bit in fp32
 with frozen BN), the rollback inside a replay, remat and the SWA graph on
 the graph, the dense feed on the graph through the loader, and
-``apps.train --feed resident --steps-per-dispatch 4`` written and resumed.
+``apps.train --feed resident --steps-per-dispatch 4`` written and resumed;
+then multi-GPU on the card(s) there are (phase 12): ``predict_batch(mesh=)``
+on a mesh of the card and on one that lists it twice, against unsharded
+serving (fp32 packed buffers bit for bit, bf16 people and peaks) and
+``PipelinedServer(mesh=)``'s frames/s; two gloo ranks sharing the card
+(``torch.multiprocessing``) with the resident store sharded over them,
+against one process at the whole batch (bf16 train-mode losses, fp32
+frozen-BN parameters); one NCCL rank with its all-reduces captured in the
+CUDA graph of the K = 4 step, beside phase 11's graph step and bit for bit
+against eager; ``apps.train`` under ``torchrun --nproc-per-node 1``
+written and resumed; the dry run
+(``improved_body_parts_tpu_torch.tools.dryrun_multichip``) over the cards;
+and the letterbox without cv2 on camera-sized frames (equal to a plain
+numpy version, timed) with 64 640x480 requests served.
 
     python3 chip_smoke.py
 
 Phases print on earlier lines; any failure raises and the exit code is not
-0. Without a CUDA device it exits 2 before doing anything. The last line is
+0 (a rank that fails or hangs fails phase 12: no rank carries on alone). Without a CUDA device it exits 2 before doing anything. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launch count in the serving run and per batch, its error against the
 plain version, its times (input warm in L2 and cold), its bound, the plain
@@ -550,7 +563,7 @@ def train_feed_run(model, config, feed, device, smi):
     8, bf16 compute, through PrefetchingLoader and the trainer's staging;
     then the step alone on a staged batch (CUDA events) and a profile."""
     from improved_body_parts_tpu_torch import train_lib
-    from improved_body_parts_tpu_torch.apps.train import staged_batches
+    from improved_body_parts_tpu_torch.parallel.mesh import staged_batches
     from improved_body_parts_tpu_torch.data.prefetch import PrefetchingLoader
     from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
 
@@ -562,9 +575,9 @@ def train_feed_run(model, config, feed, device, smi):
                                                 image_size=config.height),
                                num_workers=6)
     n = TRAIN_WARM + TRAIN_TIMED
-    batches = staged_batches(loader.batches(TRAIN_BATCH, n, seed=1, compact=compact,
-                                            image_u8=feed == "compact-u8"),
-                             device, depth=2)
+    batches = staged_batches(device, loader.batches(
+        TRAIN_BATCH, n, seed=1, compact=compact, image_u8=feed == "compact-u8"),
+        depth=2)
     lr = tcfg.learning_rate
     losses = []
     for i, batch in enumerate(batches):
@@ -827,11 +840,12 @@ TINY_VARIANTS = (("cross_stack=False", dict(cross_stack=False)),
                  ("AEPoseNet", None))
 
 
-def serve_requests(pred, requests, depth, what):
-    """``requests`` through ``PipelinedServer(batch 8, depth)``; checks the
-    results' shapes; returns frames/s end to end."""
+def serve_requests(pred, requests, depth, what, **server_kw):
+    """``requests`` through ``PipelinedServer(batch 8, depth, **server_kw)``;
+    checks the results' shapes; returns frames/s end to end."""
     from improved_body_parts_tpu_torch.infer.serving import PipelinedServer
-    serve = PipelinedServer(pred, batch_size=BATCH, depth=depth, use_cpp=True)
+    serve = PipelinedServer(pred, batch_size=BATCH, depth=depth, use_cpp=True,
+                            **server_kw)
     try:
         t0 = time.perf_counter()
         futs = [serve.submit(im) for im in requests]
@@ -854,7 +868,8 @@ def variants(frames, requests, device, smi,
 
     from improved_body_parts_tpu_torch import train_lib
     from improved_body_parts_tpu_torch.apps.demo_image import build_predictor
-    from improved_body_parts_tpu_torch.apps.train import build_model, staged_batches
+    from improved_body_parts_tpu_torch.apps.train import build_model
+    from improved_body_parts_tpu_torch.parallel.mesh import staged_batches
     from improved_body_parts_tpu_torch.configs import ModelConfig, get_config
     from improved_body_parts_tpu_torch.data.prefetch import PrefetchingLoader
     from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
@@ -891,9 +906,8 @@ def variants(frames, requests, device, smi,
     state = train_lib.create_train_state(model, config.train)
     step = train_lib.make_train_step(model, config, compact_gt=True)
     loader = PrefetchingLoader(SyntheticDataset(config, length=32), num_workers=6)
-    batches = staged_batches(loader.batches(TRAIN_BATCH, AE_STEPS, seed=2,
-                                            compact=True, image_u8=True),
-                             device, depth=2)
+    batches = staged_batches(device, loader.batches(
+        TRAIN_BATCH, AE_STEPS, seed=2, compact=True, image_u8=True), depth=2)
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for i, batch in enumerate(batches):
@@ -1534,6 +1548,7 @@ def resident_and_dispatch(device, smi) -> dict:
     from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
     from improved_body_parts_tpu_torch.models.imhn import PoseNet
     from improved_body_parts_tpu_torch.ops import kernels
+    from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
     from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
 
     line = {}
@@ -1754,7 +1769,7 @@ def resident_and_dispatch(device, smi) -> dict:
                for b in loader.batches(TRAIN_BATCH, n_dense, seed=1))
     dense_losses = []
     torch.cuda.reset_peak_memory_stats()
-    for i, (n, c) in enumerate(train_app.staged_chunks(with_lr, device, DISPATCH_K)):
+    for i, (n, c) in enumerate(mesh_lib.staged_chunks(device, with_lr, DISPATCH_K)):
         if i == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1803,6 +1818,354 @@ def resident_and_dispatch(device, smi) -> dict:
                                               "int8_conv")}
     if any(line["hand_kernel_launches"].values()):
         raise AssertionError("the training path launched a serving kernel")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 12: multi-GPU (data-parallel training, the sharded store, mesh
+# serving, the dry run) and the cv2-free letterbox
+# ---------------------------------------------------------------------------
+
+LETTERBOX_FRAMES = ((1080, 1920), (480, 640), (1000, 300))   # (h, w)
+
+
+def mesh_serving(model, config, frames, requests, device, smi) -> dict:
+    """Phase 12 (a): ``predict_batch(mesh=)`` against ``predict_batch``."""
+    from improved_body_parts_tpu_torch.infer.predict import Predictor, unpack_results
+    from improved_body_parts_tpu_torch.ops import kernels
+    from improved_body_parts_tpu_torch.parallel.mesh import make_mesh
+
+    line = {}
+    one, two = make_mesh(), make_mesh(devices=[device, device])
+    print(f"meshes: {[str(d) for d in one.devices]} and {[str(d) for d in two.devices]} "
+          "(the one card listed twice: two replicas, two streams)", flush=True)
+    B = len(frames)
+    hs = np.full((B,), 512.0, np.float32)
+    chws = np.tile(np.float32([512.0, 512.0]), (B, 1))
+    key = ((1.0,), (0.0,))
+
+    # fp32, deterministic cuDNN: the packed buffers equal
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model.compute_dtype = torch.float32
+    pred = Predictor(model, config, device=device)
+    with torch.inference_mode():
+        flat = pred._run(frames, hs, chws, *key)[0].cpu().numpy()
+        halves = np.concatenate([pred._run(frames[i:i + B // 2], hs[:B // 2],
+                                           chws[:B // 2], *key)[0].cpu().numpy()
+                                 for i in (0, B // 2)])
+    got1 = pred._run_mesh(one, frames, hs, chws, *key)
+    got2 = pred._run_mesh(two, frames, hs, chws, *key)
+    eq1, eq2 = np.array_equal(got1, flat), np.array_equal(got2, halves)
+    d2 = float(np.abs(got2 - flat).max())
+    print(f"fp32, deterministic cuDNN, batch {B}: mesh of 1 == unsharded packed "
+          f"buffers: {eq1}; mesh of 2 replicas == the unsharded predictor on each "
+          f"half: {eq2} (against the batch of {B} in one pass: max abs diff "
+          f"{d2:.3e}, cuDNN's choice for 4 frames against 8)", flush=True)
+    if not (eq1 and eq2):
+        raise AssertionError("mesh serving changed the packed buffers")
+    torch.backends.cudnn.deterministic = False
+    model.compute_dtype = torch.bfloat16
+    line["fp32_packed_equal"] = dict(mesh1=eq1, mesh2_vs_halves=eq2,
+                                     mesh2_vs_batch_max_abs=d2)
+
+    # bf16: the same people and peaks, the largest keypoint difference
+    pred = Predictor(model, config, device=device)
+    want = pred.predict_batch(frames, use_cpp=True)
+    with torch.inference_mode():
+        want_buf = pred._run(frames, hs, chws, *key)[0].cpu().numpy()
+    P = config.infer.max_peaks
+    worst, people, peaks, peaks_want, same = 0.0, 0, 0, 0, 0
+    for mesh, n in ((one, B), (two, B), (two, B - 1)):
+        got = pred.predict_batch(frames[:n], mesh=mesh, use_cpp=True)
+        if len(got) != n:
+            raise AssertionError("mesh serving returned a wrong count")
+        for (kg, _), (kw, _) in zip(got, want):
+            if kg.shape != kw.shape:
+                raise AssertionError(f"mesh serving found {len(kg)} people, "
+                                     f"unsharded {len(kw)}")
+            if len(kg):
+                worst = max(worst, float(np.abs(kg[..., :2] - kw[..., :2]).max()))
+            people += len(kg)
+        buf = pred._run_mesh(mesh, frames, hs, chws, *key)
+        if mesh is one and not np.array_equal(buf, want_buf):
+            raise AssertionError("bf16: the mesh of 1 changed the packed buffers")
+        for b in range(n):
+            gp, _ = unpack_results(buf[b], P)
+            wp, _ = unpack_results(want_buf[b], P)
+            peaks += int(gp.valid.sum())
+            peaks_want += int(wp.valid.sum())
+            for k in range(gp.valid.shape[0]):       # joint type k: same places?
+                a = {tuple(p) for p in np.round(gp.xy[k][gp.valid[k]], 2)}
+                same += len(a & {tuple(p) for p in np.round(wp.xy[k][wp.valid[k]], 2)})
+    print(f"bf16: meshes of 1 and 2 replicas (and 7 frames padded to 8 on 2) find "
+          f"the unsharded people ({people} in 3 runs; random weights); the mesh of "
+          f"1 gives the unsharded packed buffers bit for bit; peaks {peaks} on the "
+          f"meshes against {peaks_want} unsharded, {same} of them at the same "
+          f"place to 0.01 px (2 replicas run cuDNN on 4 frames, not 8); largest "
+          f"keypoint difference {worst:.3e} px", flush=True)
+    line["bf16_same_people"] = dict(people=people, max_keypoint_px=worst,
+                                    peaks=peaks, peaks_unsharded=peaks_want,
+                                    peaks_same_place=same)
+
+    # PipelinedServer(mesh=), frames/s beside the unsharded server
+    p = Predictor(model, config, device=device)
+    for mesh in (one, two):
+        p.predict_batch(frames, mesh=mesh, use_cpp=True)          # replicas, plans
+    torch.cuda.synchronize()
+    for what, kw in (("unsharded", {}), ("mesh of 1", {"mesh": one}),
+                     ("mesh of 2 replicas", {"mesh": two}), ("unsharded", {})):
+        kernels.reset_launch_counts()
+        fps = serve_requests(p, requests, DEPTH, f"PipelinedServer {what}", **kw)
+        nms = kernels.nms.launches
+        if nms == 0:
+            raise AssertionError(f"PipelinedServer {what}: nms never launched")
+        print(f"PipelinedServer({what}), batch {BATCH} depth {DEPTH}: "
+              f"{len(requests)} requests at {fps:.2f} frames/s; nms launches "
+              f"{nms} ({smi})", flush=True)
+        line.setdefault("serving", []).append(dict(mesh=what, frames_per_s=fps,
+                                                   nms_launches=nms))
+    return line
+
+
+def letterbox_plain(img: np.ndarray, size: int, pad: int):
+    """The letterbox of ``Predictor.letterbox`` in plain numpy: OpenCV's
+    fixed-point cubic (int64 sums; the float32 SIMD rows of 8) written out
+    column by column, independently of ``ops/warp.resize_cubic_u8``."""
+    h, w = img.shape[:2]
+    scale = min(size / h, size / w)
+    ow, oh = int(round(w * scale)), int(round(h * scale))
+
+    def taps(n_out, n_in, sc):
+        rows = []
+        for d in range(n_out):
+            f = np.float32((d + 0.5) * sc - 0.5)
+            s = int(np.floor(f))
+            x = np.float32(f - np.float32(s))
+            a = np.float32(-0.75)
+            c = [((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a,
+                 ((a + 2) * x - (a + 3)) * x * x + 1,
+                 ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1]
+            c.append(np.float32(1) - c[0] - c[1] - c[2])
+            rows.append(([min(max(s + k, 0), n_in - 1) for k in (-1, 0, 1, 2)],
+                         [int(np.rint(np.float32(v) * np.float32(2048))) for v in c]))
+        return rows
+
+    if (ow, oh) == (w, h):
+        out = img
+    else:
+        hor = np.zeros((h, ow, 3), np.int64)
+        for x, (ix, cx) in enumerate(taps(ow, w, 1.0 / (ow / w))):
+            hor[:, x] = sum(img[:, i].astype(np.int64) * c for i, c in zip(ix, cx))
+        out = np.zeros((oh, ow * 3), np.int64)
+        flat = hor.reshape(h, ow * 3)
+        nv = (ow * 3) // 8 * 8
+        for y, (iy, cy) in enumerate(taps(oh, h, 1.0 / (oh / h))):
+            v = sum(flat[i] * c for i, c in zip(iy, cy))
+            out[y] = (v + (1 << 21)) >> 22
+            acc = flat[iy[3], :nv].astype(np.float32) * np.float32(cy[3] / 2048 ** 2)
+            for k in (2, 1, 0):
+                acc = (flat[iy[k], :nv].astype(np.float32)
+                       * np.float32(cy[k] / 2048 ** 2) + acc).astype(np.float32)
+            out[y, :nv] = np.rint(acc)
+        out = np.clip(out, 0, 255).astype(np.uint8).reshape(oh, ow, 3)
+    canvas = np.full((size, size, 3), pad, np.uint8)
+    canvas[:oh, :ow] = out
+    return canvas, scale
+
+
+def letterbox_and_serve(model, config, frames, device, smi) -> dict:
+    """Phase 12 (f): the cv2-free letterbox on camera-sized frames against
+    its plain version, its ms, and 64 requests of 640x480 frames served."""
+    from improved_body_parts_tpu_torch.infer.predict import Predictor
+    line = {}
+    pred = Predictor(model, config, device=device)
+    rng = np.random.RandomState(SEED)
+    size, pad = config.infer.boxsize, config.infer.pad_value
+    for h, w in LETTERBOX_FRAMES:
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        got, scale = pred.letterbox(img)
+        want, want_scale = letterbox_plain(img, size, pad)
+        if not (np.array_equal(got, want) and scale == want_scale):
+            raise AssertionError(f"letterbox of {w}x{h} differs from its plain "
+                                 "version")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pred.letterbox(img)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        print(f"letterbox {w}x{h} -> {size}² (cv2 not imported): equal to its "
+              f"plain version; {ms:.2f} ms on the host (median of 5, torch on "
+              f"the CPU; {smi})", flush=True)
+        line[f"{w}x{h}"] = dict(equal=True, ms=ms)
+    if "cv2" in sys.modules:
+        raise AssertionError("cv2 was imported")
+    requests = []
+    for i in range(N_REQUESTS):
+        img = np.full((480, 640, 3), 128, np.uint8)
+        img[:, 64:576] = frames[i % len(frames)][16:496]
+        requests.append(img)
+    fps = serve_requests(pred, requests, DEPTH, "640x480 serving")
+    print(f"PipelinedServer on {N_REQUESTS} 640x480 frames (each letterboxed "
+          f"without cv2): answered, {fps:.2f} frames/s ({smi})", flush=True)
+    line["serve_640x480_frames_per_s"] = fps
+    return line
+
+
+def multi_gpu(model, config, frames, requests, device, smi, graph_ms: float) -> dict:
+    """Phase 12: (a) mesh serving, (b) two gloo ranks on the one card
+    against one process, (c) one NCCL rank, K = 4 on the CUDA graph,
+    (d) apps.train under torchrun, (e) the dry run, (f) the letterbox."""
+    import gc
+    import os
+    import tempfile
+
+    from improved_body_parts_tpu_torch import train_lib
+    from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
+    from improved_body_parts_tpu_torch.tools import multi_card
+    from improved_body_parts_tpu_torch.tools.dryrun_multichip import free_port
+    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+
+    line = {"card": smi, "cards_visible": torch.cuda.device_count()}
+    print("-- (a) serving on the mesh", flush=True)
+    line["mesh_serving"] = mesh_serving(model, config, frames, requests, device, smi)
+
+    print("-- (b) two ranks on the one card over gloo, against one process", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()        # the card's memory for the two ranks
+    line["gloo_two_ranks"] = multi_card.agreement(2, TRAIN_BATCH // 2, True, device,
+                                                  smi)
+
+    print("-- (c) one rank over NCCL, K=4 on the CUDA graph", flush=True)
+    cfg, init = multi_card.setup(device)
+    store_h = multi_card.build_store(cfg)
+    store = store_h.device_arrays(device)
+    dev = mesh_lib.initialize_multihost(f"localhost:{free_port()}", 1, 0)
+    mesh = mesh_lib.make_mesh()
+    rplans = multi_card.make_plans(store_h, cfg, TRAIN_BATCH, RESIDENT_STEPS, 0, 1, 1)
+    stacked = [torch.from_numpy(np.stack([p[i] for p in rplans])).to(dev)
+               for i in range(3)]
+    lrs = torch.full((RESIDENT_STEPS,), cfg.train.learning_rate, device=dev)
+
+    def chunk(lo, hi):
+        return [x[lo:hi] for x in stacked]
+
+    m = copy.deepcopy(init)
+    st = train_lib.create_train_state(m, cfg.train)
+    multi = train_lib.make_multi_resident_train_step(m, cfg, mesh=mesh)
+    first = multi(st, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K])["loss"]
+    dp_ms = _events_ms(lambda: [multi(st, store, *chunk(lo, lo + DISPATCH_K),
+                                      lrs[lo:lo + DISPATCH_K])
+                                for lo in range(DISPATCH_K, RESIDENT_STEPS, DISPATCH_K)],
+                       RESIDENT_STEPS - DISPATCH_K)
+    calls, by, busy = _launches_and_busy(
+        lambda: multi(st, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K]), DISPATCH_K)
+    first = first.float().cpu()
+    if multi.graphed is None or not torch.isfinite(first).all():
+        raise AssertionError("the data-parallel step was not captured, or diverged")
+    print(f"1 NCCL rank, K={DISPATCH_K} on the CUDA graph (all-reduces captured): "
+          f"{dp_ms:.1f} ms a step against {graph_ms:.1f} ms for phase 11's graph "
+          f"step without the data-parallel code (x{dp_ms / graph_ms:.3f}); "
+          f"{calls:.1f} host launch calls a step "
+          f"({', '.join(f'{k} {v:g}' for k, v in sorted(by.items()))}); busy "
+          f"{busy:.1f} ms; capture {multi.graphed.capture_seconds:.2f} s; losses "
+          f"{[round(x, 6) for x in first.tolist()]} ({smi})", flush=True)
+    line["nccl_one_rank_graph"] = dict(step_ms=dp_ms, phase11_graph_ms=graph_ms,
+                                       ratio=dp_ms / graph_ms, host_launches=calls,
+                                       busy_ms=busy, losses=first.tolist())
+    del m, st, multi
+    # nothing of the bf16 graph may stay: under memory pressure cuDNN drops a
+    # cached plan that cannot get its workspace and takes another, whose
+    # sums round differently
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    runs, free_gib, peak_gib = [], [], []
+    for graphed in (False, True):
+        free_gib.append(torch.cuda.mem_get_info(device)[0] / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        m = copy.deepcopy(init)
+        m.compute_dtype = torch.float32
+        st = train_lib.create_train_state(m, cfg.train)
+        if graphed:
+            met = train_lib.make_multi_resident_train_step(
+                m, cfg, freeze_bn=True, mesh=mesh)(st, store, *chunk(0, DISPATCH_K),
+                                                   lrs[:DISPATCH_K])
+        else:
+            fstep = train_lib.make_resident_train_step(m, cfg, freeze_bn=True,
+                                                       mesh=mesh)
+            mets = [fstep(st, store, *[x[k] for x in stacked], lrs[k])
+                    for k in range(DISPATCH_K)]
+            met = {k: torch.stack([x[k] for x in mets]) for k in mets[0]}
+        runs.append(({k: v.cpu() for k, v in met.items()},
+                     {k: v.cpu() for k, v in _train_state_tensors(st).items()}))
+        peak_gib.append(torch.cuda.max_memory_reserved() / 2 ** 30)
+        del m, st, met
+        mets = fstep = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    (me, se), (mg, sg) = runs
+    identical = _state_equal(sg, se) and all(torch.equal(mg[k], me[k]) for k in me)
+    n_diff = sum(not torch.equal(sg[k], se[k]) for k in se)
+    print(f"1 NCCL rank, fp32 frozen BN, {DISPATCH_K} steps, graph against eager: "
+          f"{'bit-identical' if identical else 'NOT bit-identical'} ({n_diff} of "
+          f"{len(se)} tensors differ; largest relative difference "
+          f"{_rel_err(sg, se):.2e}; losses equal by step "
+          f"{[bool(x) for x in (mg['loss'] == me['loss'])]}; card memory free "
+          f"before eager/graph {free_gib[0]:.2f}/{free_gib[1]:.2f} GiB, peak "
+          f"reserved {peak_gib[0]:.2f}/{peak_gib[1]:.2f} GiB)", flush=True)
+    if not identical:
+        raise AssertionError("the data-parallel graph differs from eager steps")
+    line["nccl_one_rank_graph"]["fp32_frozen_graph_vs_eager_identical"] = identical
+    torch.distributed.destroy_process_group()
+    del runs, store, init
+    torch.cuda.empty_cache()
+
+    print("-- (d) apps.train under torchrun --nproc-per-node 1", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+               "--master-port", str(free_port()), "-m",
+               "improved_body_parts_tpu_torch.apps.train", "--tiny-model",
+               "--image-size", "128", "--batch-size", "4", "--feed", "resident",
+               "--resident-augment", "--resident-shard-store", "--steps-per-dispatch",
+               str(DISPATCH_K), "--epochs", "1", "--steps-per-epoch", "4",
+               "--synthetic-length", "8", "--print-freq", "4", "-p", tmp]
+        t0 = time.perf_counter()
+        out = multi_card.run_tree(cmd, 300, "torchrun apps.train")
+        if "rank 0 of 1 (nccl)" not in out:
+            raise AssertionError("apps.train under torchrun did not join NCCL")
+        written = ckpt.restore_train_state(os.path.join(tmp, "pth"))
+        cmd[cmd.index("--epochs") + 1] = "2"
+        cmd[cmd.index("--master-port") + 1] = str(free_port())
+        multi_card.run_tree(cmd + ["-r"], 300, "torchrun apps.train -r")
+        resumed = ckpt.restore_train_state(os.path.join(tmp, "pth"))
+        if (written["step"], resumed["step"], resumed["epoch"]) != (4, 8, 1):
+            raise AssertionError(f"torchrun checkpoints: steps {written['step']}, "
+                                 f"{resumed['step']}, epoch {resumed['epoch']}")
+        tr_s = time.perf_counter() - t0
+    print(f"torchrun --nproc-per-node 1 apps.train --feed resident "
+          f"--resident-shard-store --steps-per-dispatch {DISPATCH_K} (tiny model, "
+          f"128²): epoch 0 written (step 4), resumed with -r (step 8), in "
+          f"{tr_s:.1f} s, two launches", flush=True)
+    line["torchrun_train"] = dict(written_step=4, resumed_step=8, seconds=tr_s)
+
+    n = torch.cuda.device_count()
+    print(f"-- (e) the dry run over {n} card(s)", flush=True)
+    t0 = time.perf_counter()
+    out = multi_card.run_tree(
+        [sys.executable, "-m", "improved_body_parts_tpu_torch.tools.dryrun_multichip",
+         str(n)], 600, "dryrun_multichip")
+    ok = [ln for ln in out.splitlines() if "dryrun_multichip(" in ln]
+    print(ok[-1] if ok else out[-2000:], flush=True)
+    line["dryrun"] = dict(n=n, rc=0, seconds=time.perf_counter() - t0)
+
+    print("-- (f) the letterbox without cv2", flush=True)
+    line["letterbox"] = letterbox_and_serve(model, config, frames, device, smi)
     return line
 
 
@@ -2011,8 +2374,16 @@ def main() -> int:
     # -- 11: the resident feed and the K-steps dispatch --------------------------------
     phase(f"11 resident feed and multi-step dispatch: Canonical 512², batch "
           f"{TRAIN_BATCH}, K={DISPATCH_K} on a CUDA graph")
-    print(json.dumps({"resident_and_dispatch": resident_and_dispatch(device, smi)}),
-          flush=True)
+    resident_line = resident_and_dispatch(device, smi)
+    print(json.dumps({"resident_and_dispatch": resident_line}), flush=True)
+
+    # -- 12: multi-GPU and the letterbox without cv2 ------------------------------------
+    phase(f"12 multi-GPU: mesh serving, 2 gloo ranks and 1 NCCL rank on the card, "
+          f"torchrun, the dry run; the letterbox without cv2")
+    kernels.reset_launch_counts()
+    mg_line = multi_gpu(model, config, frames, requests, device, smi,
+                        resident_line[f"resident_k{DISPATCH_K}_graph"]["step_ms"])
+    print(json.dumps({"multi_gpu": mg_line}), flush=True)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@ It serves (batched flip-TTA behind ``PipelinedServer``, multi-scale and
 rotation TTA, the demo and evaluate entry points), trains (loss, train-mode
 BatchNorm, the SGD step, GT rendered on the device, the device-resident
 feed with its augmentation on the card, K steps a dispatch replayed from a
-CUDA graph of the captured step, checkpoints, ``apps/train.py``), quantizes to int8 after training (fold, calibrate,
+CUDA graph of the captured step, checkpoints, ``apps/train.py``), on one
+card or data parallel on several (``parallel/mesh.py``: one process a
+card, train-mode BatchNorm over the global batch, the resident store
+sharded over the ranks; mesh-sharded serving), quantizes to int8 after
+training (fold, calibrate,
 int8 serving) and builds every model variant of the JAX package
 (``extra_attention``, ``cross_stack=False``, ``IndependentPoseNet``,
 ``AEPoseNet``).
@@ -24,7 +28,9 @@ and ``int8_conv`` and their build), ``infer/`` (the ``Predictor`` and
 ``PipelinedServer``), ``apps/`` (the demo, evaluate and train entry
 points), ``data/`` (synthetic scenes, their ground-truth maps and the
 training feeds, the resident store among them), ``train_lib`` and
-``train_graph`` (the train steps and their CUDA-graph dispatch), ``utils/`` (device, checkpoint, drawing and OKS evaluation
-helpers), ``tools/`` (the int8 kernel's probe) and ``csrc/`` (the CUDA and
-C++ sources).
+``train_graph`` (the train steps and their CUDA-graph dispatch),
+``parallel/`` (process groups, the mesh, the data-parallel collectives),
+``utils/`` (device, checkpoint, drawing and OKS evaluation helpers),
+``tools/`` (the int8 kernel's probe, the multi-process dry run) and
+``csrc/`` (the CUDA and C++ sources).
 """

@@ -1,5 +1,6 @@
 """Train the IMHN pose network with the port (the JAX package's
-``train.py`` with its flags and epoch loop), on one CUDA card.
+``train.py`` with its flags and epoch loop), on one CUDA card, or data
+parallel on several, one process a card.
 
     python -m improved_body_parts_tpu_torch.apps.train --epochs 2 \
         --steps-per-epoch 10 --batch-size 4 --image-size 256 -p ckpt_dir
@@ -32,19 +33,30 @@ times (``train_graph.py``); on the CPU K eager steps.
     python -m improved_body_parts_tpu_torch.apps.train --feed resident \
         --resident-augment --steps-per-dispatch 4 --batch-size 8 -p ckpt_dir
 
-Not ported: ``--multihost`` and ``--resident-shard-store`` (multi-GPU,
-ROADMAP A13) raise ``NotImplementedError``.
+Several cards: under ``torchrun`` (or with ``--multihost --coordinator
+host:port --num-processes N --process-id i``) each process trains on its
+card (nccl; gloo with ``--device cpu``), ``--batch-size`` is a card's and
+the global batch is ``batch_size x world`` (the learning rate scaled by the
+world, as the JAX package scales it by its devices); each rank reads its
+``process_batch_slice`` of the shared plan, the train-mode BatchNorm
+statistics are the global batch's and the gradients are averaged by one
+all-reduce (``train_lib``). Rank 0 alone writes the log and the ``.pth``;
+every rank resumes from it. ``--resident-shard-store`` keeps only a rank's
+contiguous record range of the resident store on its card (the records
+trimmed to a multiple of the world).
+
+    torchrun --nproc-per-node 8 -m improved_body_parts_tpu_torch.apps.train \
+        --feed resident --resident-shard-store --steps-per-dispatch 4 \
+        --batch-size 8 -p ckpt_dir
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import os
 import sys
 import time
-from typing import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -54,97 +66,8 @@ from improved_body_parts_tpu_torch.apps.demo_image import DTYPES, default_device
 from improved_body_parts_tpu_torch.configs import ModelConfig, get_config
 from improved_body_parts_tpu_torch.models.ae_pose import AEPoseNet
 from improved_body_parts_tpu_torch.models.imhn import create_model
+from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
 from improved_body_parts_tpu_torch.utils import checkpoint as ckpt_lib
-
-
-def _to_tensors(batch):
-    """A host batch (numpy arrays or torch tensors, nested tuples) -> CPU
-    tensors."""
-    if isinstance(batch, (tuple, list)):
-        return tuple(_to_tensors(b) for b in batch)
-    return batch if isinstance(batch, torch.Tensor) else torch.from_numpy(batch)
-
-
-def _map(fn, batch):
-    if isinstance(batch, tuple):
-        return tuple(_map(fn, b) for b in batch)
-    return fn(batch)
-
-
-def staged_batches(host_batches: Iterable, device: torch.device,
-                   depth: int = 2) -> Iterator:
-    """Host batches -> batches on ``device``, ``depth`` ahead: each is
-    pinned and copied with ``non_blocking=True`` on a side stream while the
-    steps before it run (the reference overlaps H2D with non_blocking
-    copies, train_distributed.py:256-258); the consumer's stream waits on
-    the copy's event. ``depth`` 0 copies in the loop. On the CPU the
-    batches pass through as tensors."""
-    if device.type != "cuda":
-        for b in host_batches:
-            yield _to_tensors(b)
-        return
-    if depth <= 0:
-        for b in host_batches:
-            yield _map(lambda t: t.to(device), _to_tensors(b))
-        return
-    side = torch.cuda.Stream(device)
-    pending: collections.deque = collections.deque()
-
-    def stage(b):
-        pinned = _map(lambda t: t.pin_memory(), _to_tensors(b))
-        with torch.cuda.stream(side):
-            dev = _map(lambda t: t.to(device, non_blocking=True), pinned)
-            done = torch.cuda.Event()
-            done.record(side)
-        return dev, done
-
-    it = iter(host_batches)
-    for b in it:
-        pending.append(stage(b))
-        if len(pending) >= depth:
-            break
-    while pending:
-        dev, done = pending.popleft()
-        for b in it:                          # top the window up first
-            pending.append(stage(b))
-            break
-        cur = torch.cuda.current_stream(device)
-        cur.wait_event(done)
-        _map(lambda t: t.record_stream(cur), dev)
-        yield dev
-
-
-def _stack(group):
-    """K host batches (tuples of numpy arrays or CPU tensors, nested) ->
-    one batch with a leading step axis."""
-    first = group[0]
-    if isinstance(first, tuple):
-        return tuple(_stack([g[i] for g in group]) for i in range(len(first)))
-    return torch.stack([_to_tensors(g) for g in group])
-
-
-def staged_chunks(host_batches: Iterable, device: torch.device, k: int,
-                  depth: int = 2) -> Iterator:
-    """``staged_batches`` for the K-steps dispatch: the host batches in
-    chunks of ``k`` stacked on a leading step axis, each pinned and copied
-    on the side stream ``depth`` chunks ahead (at least one). Yields
-    ``(n, chunk)``; a short last chunk keeps its true length n, so the
-    epoch's step count is exact (JAX ``parallel/mesh.staged_chunks``)."""
-    def chunks():
-        group = []
-        for b in host_batches:
-            group.append(b)
-            if len(group) == k:
-                yield _stack(group)
-                group = []
-        if group:
-            yield _stack(group)
-
-    for chunk in staged_batches(chunks(), device, max(depth, 1)):
-        first = chunk
-        while isinstance(first, tuple):
-            first = first[0]
-        yield len(first), chunk
 
 
 def build_model(args, config, device: torch.device) -> tuple:
@@ -219,8 +142,9 @@ def main(argv=None) -> int:
                              "dataset too (h5 datasets always augment, as "
                              "the host pipeline; no tint)")
     parser.add_argument("--resident-shard-store", action="store_true",
-                        help="with --feed resident: shard the store over "
-                             "several cards (not ported)")
+                        help="with --feed resident: each rank keeps only its "
+                             "contiguous record range of the store on its "
+                             "card")
     parser.add_argument("--max-people", type=int, default=8,
                         help="people-slot padding for --feed compact")
     parser.add_argument("--max_grad_norm", type=float, default=0.0)
@@ -236,7 +160,15 @@ def main(argv=None) -> int:
                         help="recompute hourglass activations in the backward "
                              "pass (torch.utils.checkpoint)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-GPU training (not ported)")
+                        help="data-parallel training, one process a card: "
+                             "torchrun's environment, or --coordinator")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of rank 0's rendezvous for "
+                             "--multihost without torchrun")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="processes of a --coordinator run")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="this process's rank in a --coordinator run")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda, and an error when "
                              "no card is visible; pass cpu to run on the CPU)")
@@ -245,16 +177,21 @@ def main(argv=None) -> int:
                              "and BatchNorm stay fp32)")
     args = parser.parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-GPU DDP with SyncBatchNorm is not ported "
-            "(ROADMAP A13)")
-    if args.resident_shard_store:
-        raise NotImplementedError(
-            "--resident-shard-store: a resident store sharded over several "
-            "cards goes with multi-GPU, not ported (ROADMAP A13)")
-    device = default_device(args.device)
-    print(f"device: {device}")
+    if args.resident_shard_store and args.feed != "resident":
+        raise ValueError("--resident-shard-store shards the resident store: "
+                         "it needs --feed resident")
+    multi = args.multihost or "WORLD_SIZE" in os.environ
+    if multi:
+        device = mesh_lib.initialize_multihost(
+            args.coordinator, args.num_processes, args.process_id,
+            device=args.device)
+        mesh = mesh_lib.make_mesh()
+    else:
+        device = default_device(args.device)
+        mesh = None
+    rank, world = (mesh.rank, mesh.world) if multi else (0, 1)
+    print(f"device: {device}" + (f", rank {rank} of {world} "
+                                 f"({mesh.backend})" if multi else ""))
 
     config = get_config(args.config)
     tcfg = dataclasses.replace(
@@ -267,8 +204,9 @@ def main(argv=None) -> int:
     )
     config = dataclasses.replace(config, train=tcfg)
     image_size = args.image_size or config.height
-    batch = tcfg.batch_size
-    print(f"batch {batch} on one device")
+    batch = tcfg.batch_size * world               # global
+    print(f"batch {tcfg.batch_size} a card" + (f", global batch {batch}"
+                                             if multi else " on one device"))
 
     mcfg, model = build_model(args, config, device)
     state = train_lib.create_train_state(model, tcfg)
@@ -302,8 +240,16 @@ def main(argv=None) -> int:
         # copy it there, and plan each step on the host
         from improved_body_parts_tpu_torch.data import resident as resident_lib
         t0 = time.time()
-        store_h = resident_lib.build_store(train_ds)
-        store = store_h.device_arrays(device)
+        store_shards = world if args.resident_shard_store else 1
+        indices = None
+        if len(train_ds) % store_shards:
+            # contiguous record ranges must divide evenly over the ranks
+            indices = np.arange(len(train_ds) - len(train_ds) % store_shards)
+            print(f"sharded store: trimming {len(train_ds) - len(indices)} "
+                  f"records to divide over {store_shards} ranks")
+        store_h = resident_lib.build_store(train_ds, indices=indices)
+        store = store_h.device_arrays(
+            device, shard=(rank, store_shards) if store_shards > 1 else None)
         feed_r = resident_lib.ResidentFeed(
             store_h, dataclasses.replace(config, width=image_size,
                                          height=image_size),
@@ -311,7 +257,9 @@ def main(argv=None) -> int:
             max_people=args.max_people)
         mb = sum(v.numel() for v in store.values()) / 1e6
         print(f"resident store: {len(store_h)} records, {mb:.0f} MB uint8 "
-              f"copied to {device} in {time.time() - t0:.1f}s")
+              f"copied to {device} in {time.time() - t0:.1f}s"
+              + (f" (records {rank}/{store_shards} of the store)"
+                 if store_shards > 1 else ""))
     elif args.workers > 0:
         from improved_body_parts_tpu_torch.data.prefetch import PrefetchingLoader
         train_ds = PrefetchingLoader(train_ds, num_workers=args.workers)
@@ -331,7 +279,7 @@ def main(argv=None) -> int:
             if kd > 1 and device.type == "cuda" else None)
 
     def make_step(freeze_bn: bool):
-        kw = dict(use_focal=use_focal, freeze_bn=freeze_bn)
+        kw = dict(use_focal=use_focal, freeze_bn=freeze_bn, mesh=mesh)
         if resident:
             if kd > 1:
                 return train_lib.make_multi_resident_train_step(
@@ -346,11 +294,12 @@ def main(argv=None) -> int:
     train_step = make_step(freeze_bn=False)
     # SWA epochs run with frozen BatchNorm (train_distributed_SWA.py:221)
     swa_step = make_step(freeze_bn=True) if args.swa else None
+    if getattr(train_step, "eager_reason", None):
+        print(f"--steps-per-dispatch {kd}: {train_step.eager_reason}")
     eval_step = train_lib.make_eval_step(model, step_config, use_focal=use_focal)
     fixed = (store,) if resident else ()
 
     log_path = os.path.join(args.checkpoint_path, "log")
-    rank, world = 0, 1
     for epoch in range(start_epoch, args.epochs):
         t_epoch = time.time()
         # metrics stay on the device; one fetch an epoch
@@ -358,7 +307,8 @@ def main(argv=None) -> int:
         swa_active = args.swa and epoch >= args.swa_start_epoch
         if resident:
             host_batches = feed_r.plan_batches(batch, steps, seed=epoch,
-                                               rank=rank, world=world)
+                                               rank=rank, world=world,
+                                               store_shards=store_shards)
         else:
             host_batches = train_ds.batches(batch, steps, seed=epoch, rank=rank,
                                             world=world, compact=compact,
@@ -370,7 +320,7 @@ def main(argv=None) -> int:
                 # cyclic LR while averaging (train_distributed_SWA.py:365-371)
                 return train_lib.cyclic_learning_rate(tcfg, epoch,
                                                       args.swa_start_epoch)
-            return train_lib.learning_rate(tcfg, epoch, step, steps,
+            return train_lib.learning_rate(tcfg, epoch, step, steps, world,
                                            use_warmup=not args.no_warmup)
 
         def report(step, metrics, lr):
@@ -384,7 +334,8 @@ def main(argv=None) -> int:
             with_lr = ((*b, np.asarray(step_lr(i), np.float32))
                        for i, b in enumerate(host_batches))
             step = 0
-            for n, chunk in staged_chunks(with_lr, device, kd, args.stage_depth):
+            for n, chunk in mesh_lib.staged_chunks(device, with_lr, kd,
+                                                   args.stage_depth):
                 metrics = active_step(state, *fixed, *chunk)
                 loss_accs.append(metrics["loss"])          # (n,)
                 skip_accs.append(metrics["skipped"])
@@ -393,8 +344,8 @@ def main(argv=None) -> int:
                            step_lr(step + n - 1))
                 step += n
         else:
-            for step, b in enumerate(staged_batches(host_batches, device,
-                                                    args.stage_depth)):
+            for step, b in enumerate(mesh_lib.staged_batches(
+                    device, host_batches, args.stage_depth)):
                 lr = step_lr(step)
                 metrics = active_step(state, *fixed, *b, lr)
                 loss_accs.append(metrics["loss"])
@@ -415,25 +366,30 @@ def main(argv=None) -> int:
         # validation loss (reference test(), train_distributed.py:341-393)
         val_losses = []
         if val_ds is not None:
-            for imgs, masks, heats in staged_batches(
-                    val_ds.batches(batch, max(steps // 8, 1), seed=0, rank=rank,
-                                   world=world), device, 0):
+            for imgs, masks, heats in mesh_lib.staged_batches(
+                    device, val_ds.batches(batch, max(steps // 8, 1), seed=0,
+                                           rank=rank, world=world), 0):
                 val_losses.append(eval_step(imgs, masks, heats))
         train_loss = float(epoch_losses.mean()) if len(epoch_losses) else float("nan")
-        val_loss = (float(torch.stack(val_losses).mean()) if val_losses
-                    else float("nan"))
+        val_loss = torch.stack(val_losses).mean() if val_losses else None
+        if val_loss is not None and multi:
+            # every rank's slice weighs the same: the mean of the means
+            val_loss = mesh_lib.all_reduce_mean([val_loss], mesh.group)[0]
+        val_loss = float("nan") if val_loss is None else float(val_loss)
         dt = time.time() - t_epoch
         print(f"=== epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
               f"({dt:.1f}s, {skipped} skipped batches)")
         if rank == 0:  # rank-0-only logging (train_distributed.py:318-324)
             with open(log_path, "a") as f:
                 f.write(f"Epoch {epoch}\ttrain_loss: {train_loss}\tval_loss: {val_loss}\n")
-        ckpt_lib.save_train_state(
-            ckpt_dir, train_lib.state_payload(state, tcfg, epoch=epoch,
-                                              train_loss=train_loss),
-            step=epoch, keep=args.keep)
+            ckpt_lib.save_train_state(
+                ckpt_dir, train_lib.state_payload(state, tcfg, epoch=epoch,
+                                                  train_loss=train_loss),
+                step=epoch, keep=args.keep)
+        if multi:
+            torch.distributed.barrier()     # the epoch's .pth is written
 
-    if args.swa and int(state.swa_count) > 0:
+    if args.swa and int(state.swa_count) > 0 and rank == 0:
         # publish the averaged model (reference swap_swa_sgd before the final
         # save, train_distributed_SWA.py:403-424)
         train_lib.swa_swap(state)
@@ -443,6 +399,8 @@ def main(argv=None) -> int:
             step=args.epochs - 1)
         print(f"wrote SWA-averaged model ({int(state.swa_count)} snapshots) "
               f"to {swa_dir}")
+    if multi:
+        torch.distributed.destroy_process_group()
     print("done")
     return 0
 

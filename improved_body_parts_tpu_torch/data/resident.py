@@ -25,8 +25,11 @@ the host pipeline are the JAX package's: float bilinear against cv2's
 5-bit fixed-point INTER_LINEAR, and no HSV tint (a stored image cannot be
 re-tinted; geometric augmentation only).
 
-A store sharded over several cards (``store_shards > 1``, the JAX
-package's ``--resident-shard-store``) goes with multi-GPU (ROADMAP A13).
+A store sharded over the ranks (``--resident-shard-store``): each rank
+copies only its contiguous record range to its card
+(``device_arrays(shard=(rank, world))``), and ``plan_batches(
+store_shards=world)`` gives each rank indices into its own range, the JAX
+package's plan exactly; the gather needs no collective.
 """
 
 from __future__ import annotations
@@ -72,33 +75,46 @@ class ResidentStore:
     def __len__(self) -> int:
         return len(self.images)
 
-    def device_arrays(self, device) -> dict:
+    def device_arrays(self, device, shard: Optional[Tuple[int, int]] = None
+                      ) -> dict:
         """Copy the dense arrays to ``device`` once. Returns the dict the
         resident train step takes as its ``store``: ``images`` and, where
-        the records have them, ``mask_miss`` and ``mask_all``."""
+        the records have them, ``mask_miss`` and ``mask_all``. ``shard`` =
+        (i, n) copies only the i-th of n contiguous record ranges (a store
+        sharded over n ranks; n must divide the records)."""
         out = {"images": self.images}
         if self.mask_miss is not None:
             out["mask_miss"] = self.mask_miss
         if self.mask_all is not None:
             out["mask_all"] = self.mask_all
+        if shard is not None:
+            i, n_shards = shard
+            if len(self) % n_shards:
+                raise ValueError(f"{len(self)} records do not divide over "
+                                 f"{n_shards} shards")
+            per = len(self) // n_shards
+            out = {k: v[i * per:(i + 1) * per] for k, v in out.items()}
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in out.items()}
 
 
-def build_store(dataset, canvas_hw: Optional[Tuple[int, int]] = None
-                ) -> ResidentStore:
+def build_store(dataset, canvas_hw: Optional[Tuple[int, int]] = None,
+                indices: Optional[np.ndarray] = None) -> ResidentStore:
     """Assemble a fixed-canvas store from a dataset exposing either
     ``read_raw(idx) -> (img, mask_miss, mask_all, meta)`` (``CocoH5Dataset``:
     records are padded bottom/right to the canvas with the augmentation's
     border colours, records larger than it are INTER_AREA-downscaled with
     joints, objpos and scale scaled along) or ``resident_raw(idx) ->
-    (img_u8, joints)`` (``SyntheticDataset``: fixed size, no masks)."""
-    n = len(dataset)
+    (img_u8, joints)`` (``SyntheticDataset``: fixed size, no masks).
+    ``indices`` picks the records (default: all), e.g. the first multiple
+    of the shard count for a sharded store."""
+    idxs = np.arange(len(dataset)) if indices is None else np.asarray(indices)
+    n = len(idxs)
 
     if hasattr(dataset, "resident_raw"):
         imgs, joints = [], []
-        for i in range(n):
-            im, j = dataset.resident_raw(i)
+        for i in idxs:
+            im, j = dataset.resident_raw(int(i))
             imgs.append(im)
             joints.append(np.asarray(j, np.float32))
         images = np.stack(imgs)
@@ -118,7 +134,7 @@ def build_store(dataset, canvas_hw: Optional[Tuple[int, int]] = None
                              np.asarray(objpos, np.float32),
                              np.asarray(scale, np.float32))
 
-    records = [dataset.read_raw(i) for i in range(n)]
+    records = [dataset.read_raw(int(i)) for i in idxs]
     if canvas_hw is None:
         canvas_hw = (max(r[0].shape[0] for r in records),
                      max(r[0].shape[1] for r in records))
@@ -205,25 +221,39 @@ class ResidentFeed:
         the same plan from ``seed`` and keeps its contiguous 1/world slice
         of ``b = batch_size // world`` samples (the shared-plan multi-process
         pattern of the reference's DistributedSampler,
-        train_distributed.py:209-211). A store sharded over ``store_shards``
-        cards is not ported (ROADMAP A13)."""
-        if store_shards > 1:
-            raise NotImplementedError(
-                "a resident store sharded over several cards "
-                "(--resident-shard-store) goes with multi-GPU, ROADMAP A13")
+        train_distributed.py:209-211).
+
+        ``store_shards`` > 1 plans for a store sharded in that many
+        contiguous record ranges (``device_arrays(shard=)``, one a rank when
+        ``store_shards == world``): batch element j draws only from the
+        range of the shard it lands on, and the indices it yields are LOCAL
+        to that range; the joints and affines are still planned from the
+        global record. reference: JAX ``ResidentFeed.plan_batches``."""
         rng = np.random.RandomState(seed)
         per = batch_size // world
         if per * world != batch_size:
             raise ValueError(f"batch {batch_size} does not split over "
                              f"{world} processes")
         n = len(self.store)
+        if store_shards > 1:
+            if n % store_shards or batch_size % store_shards:
+                raise ValueError(f"{n} records and batch {batch_size} must "
+                                 f"divide over {store_shards} store shards")
+            n_local = n // store_shards
+            shard_of = np.arange(batch_size) // (batch_size // store_shards)
         for _ in range(steps):
-            idxs = rng.randint(0, n, batch_size)
+            if store_shards > 1:
+                local = rng.randint(0, n_local, batch_size)
+                idxs = shard_of * n_local + local        # global, for plans
+                wire_idxs = local
+            else:
+                idxs = rng.randint(0, n, batch_size)
+                wire_idxs = idxs
             # sample every augmentation from the shared stream so ranks stay
             # in step, then slice
             plans = [self._plan_one(int(i), rng) for i in idxs]
             sl = slice(rank * per, (rank + 1) * per)
             inv_m = np.stack([p[0] for p in plans])[sl]
             joints = np.stack([p[1] for p in plans])[sl]
-            yield (idxs[sl].astype(np.int32), inv_m.astype(np.float32),
+            yield (wire_idxs[sl].astype(np.int32), inv_m.astype(np.float32),
                    joints.astype(np.float32))

@@ -14,12 +14,25 @@ package's device programs (``_device_fn_tta``/``_device_fn_batch_tta``):
 each scale resizes (cv2-cubic) and bucket-pads the batch, each angle rotates
 it, the flip pair runs, the maps are rotated back about the stride-map
 centre, cropped to the scaled content and resized to the base maps, and the
-variants are averaged before one post-processing pass. ``mesh`` (sharded
-serving) raises ``NotImplementedError``.
+variants are averaged before one post-processing pass.
+
+Sharded serving (``predict_batch(mesh=)``, JAX predict.py:547-595): the
+batch is padded to a multiple of the mesh's devices by repeating the last
+frame and split over them; each device runs its own replica of the model
+(made once per device set and cached, as JAX ``_mesh_variables``; an int8
+model's ``QConv2d`` weights, and so the kernel's cached TMA maps, are per
+replica) with the same device program, ``nms`` or ``fused_peaks``
+included, on a stream of its own; each sends back one packed buffer, the
+pad results are dropped, and the host groups as without the mesh. The
+launches are enqueued from the calling thread, one device after another,
+and run concurrently. A card listed twice holds two replicas on two
+streams.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,7 +49,7 @@ from improved_body_parts_tpu_torch.ops.limbs import (
 )
 from improved_body_parts_tpu_torch.ops.peaks import PeakTable, find_peaks
 from improved_body_parts_tpu_torch.ops.warp import (
-    affine_warp, resize_cubic_cv2, rotation_matrix,
+    affine_warp, resize_cubic_cv2, resize_cubic_u8, rotation_matrix,
 )
 
 
@@ -89,17 +102,6 @@ def unpack_results(buf: np.ndarray, P: int):
 # host-side preprocessing
 # ---------------------------------------------------------------------------
 
-def _cv2():
-    """OpenCV, imported only when a frame has to be resized."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError("this frame has to be resized, which needs OpenCV "
-                           "(cv2), and cv2 is not installed; send frames whose "
-                           "size needs no resize") from e
-    return cv2
-
-
 def pad_image_to_bucket(img: np.ndarray, bucket: int = 64,
                         pad_value: int = 128,
                         max_hw: Tuple[int, int] = (2600, 3800)):
@@ -109,9 +111,7 @@ def pad_image_to_bucket(img: np.ndarray, bucket: int = 64,
     h, w = img.shape[:2]
     if h > max_hw[0] or w > max_hw[1]:
         scale = min(max_hw[0] / h, max_hw[1] / w)
-        cv2 = _cv2()
-        img = cv2.resize(img, (0, 0), fx=scale, fy=scale,
-                         interpolation=cv2.INTER_CUBIC)
+        img = resize_cubic_u8(img, fx=scale, fy=scale)
         h, w = img.shape[:2]
     ph = -(-h // bucket) * bucket
     pw = -(-w // bucket) * bucket
@@ -153,6 +153,13 @@ def gaussian_blur(maps: torch.Tensor, kernel_size: int = 5,
     return cols.reshape(*lead, h, w)
 
 
+def _canon(d: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current card>``, so that both name one card."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def _tta_key(scales, angles) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
     return (tuple(scales) if scales is not None else (1.0,)), tuple(angles)
 
@@ -180,6 +187,65 @@ class Predictor:
         self.fused_peaks = bool(fused_peaks)
         self._flip_ord = torch.as_tensor(FLIP_CHANNEL_ORD, dtype=torch.long,
                                          device=self.device)
+        self._replicas = {}        # device set -> [(replica, stream or None)]
+        self._replicas_lock = threading.Lock()
+
+    # -- sharded serving -----------------------------------------------------
+    def _replica(self, device: torch.device) -> "Predictor":
+        """This predictor around a copy of the model on ``device``."""
+        rep = copy.copy(self)
+        rep.model = copy.deepcopy(self.model).to(device)
+        rep.device = device
+        rep._flip_ord = self._flip_ord.to(device)
+        rep._replicas = {}
+        return rep
+
+    def _mesh_replicas(self, mesh):
+        """One (predictor, stream) a device of ``mesh``, made once per
+        device set: the first slot on this predictor's own device serves
+        from its model, every other slot from a copy; a card's slot gets a
+        stream of its own."""
+        key = tuple(str(d) for d in mesh.devices)
+        with self._replicas_lock:
+            if key not in self._replicas:
+                reps, own = [], False
+                for d in mesh.devices:
+                    if _canon(d) == _canon(self.device) and not own:
+                        rep, own = self, True
+                    else:
+                        rep = self._replica(d)
+                    stream = torch.cuda.Stream(d) if d.type == "cuda" else None
+                    reps.append((rep, stream))
+                self._replicas[key] = reps
+            return self._replicas[key]
+
+    def _run_mesh(self, mesh, imgs_u8, img_hs, content_hws, scales, angles):
+        """The batch split over ``mesh``'s devices (B a multiple of them) ->
+        (B, n) packed float32 on the host: each slot's work enqueued on its
+        device and stream, then one fetch a slot."""
+        reps = self._mesh_replicas(mesh)
+        per = imgs_u8.shape[0] // len(reps)
+        outs = []
+        for i, (rep, stream) in enumerate(reps):
+            sl = slice(i * per, (i + 1) * per)
+            if stream is None:
+                outs.append((rep._run(imgs_u8[sl], img_hs[sl], content_hws[sl],
+                                      scales, angles)[0].cpu(), None))
+                continue
+            stream.wait_stream(torch.cuda.current_stream(rep.device))
+            with torch.cuda.device(rep.device), torch.cuda.stream(stream):
+                packed = rep._run(imgs_u8[sl], img_hs[sl], content_hws[sl],
+                                  scales, angles)[0]
+                host = torch.empty(packed.shape, dtype=packed.dtype,
+                                   pin_memory=True)
+                host.copy_(packed, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            outs.append((host, done))
+        for host, done in outs:
+            if done is not None:
+                done.synchronize()
+        return torch.cat([h for h, _ in outs]).numpy()
 
     # -- device stages -------------------------------------------------------
     def _postprocess(self, avg: torch.Tensor, img_h: torch.Tensor,
@@ -328,18 +394,13 @@ class Predictor:
 
     def letterbox(self, img: np.ndarray) -> Tuple[np.ndarray, float]:
         """Scale the longer side to ``boxsize`` and pad to a square canvas.
-        Returns (boxsize x boxsize uint8, scale applied). A frame whose
-        longer side already is ``boxsize`` is not resized (and needs no cv2)."""
+        Returns (boxsize x boxsize uint8, scale applied). The resize is
+        ``ops/warp.resize_cubic_u8`` (cv2's INTER_CUBIC, without cv2)."""
         size = self.config.infer.boxsize
         h, w = img.shape[:2]
         scale = min(size / h, size / w)
         new_w, new_h = int(round(w * scale)), int(round(h * scale))
-        if (new_w, new_h) == (w, h):
-            resized = img
-        else:
-            cv2 = _cv2()
-            resized = cv2.resize(img, (new_w, new_h),
-                                 interpolation=cv2.INTER_CUBIC)
+        resized = resize_cubic_u8(img, (new_w, new_h))
         out = np.full((size, size, 3), self.config.infer.pad_value, np.uint8)
         out[:resized.shape[0], :resized.shape[1]] = resized
         return out, scale
@@ -386,18 +447,32 @@ class Predictor:
         valid-content extents (default: the full canvas). ``scales``/
         ``angles`` run multi-scale / rotation TTA, uniform across the batch
         (the letterbox canvas makes the reference's per-image multiplier the
-        scale itself)."""
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded serving is not ported")
+        scale itself). ``mesh`` (``parallel/mesh.make_mesh``) splits the
+        batch over its devices, one model replica each (module docstring);
+        the batch is padded to a multiple of them with the last frame."""
         B, h, w = imgs.shape[:3]
         if img_hs is None:
             img_hs = np.full((B,), h, np.float32)
         if content_hws is None:
             content_hws = np.tile(np.float32([h, w]), (B, 1))
-        packed, _, _ = self._run(imgs, np.asarray(img_hs, np.float32),
-                                 np.asarray(content_hws, np.float32),
-                                 *_tta_key(scales, angles))
-        bufs = packed.cpu().numpy()                   # one fetch per batch
+        img_hs = np.asarray(img_hs, np.float32)
+        content_hws = np.asarray(content_hws, np.float32)
+        if mesh is None:
+            packed, _, _ = self._run(imgs, img_hs, content_hws,
+                                     *_tta_key(scales, angles))
+            bufs = packed.cpu().numpy()               # one fetch per batch
+        else:
+            if not hasattr(mesh, "devices"):
+                raise TypeError(f"a mesh of parallel/mesh.make_mesh, got {mesh!r}")
+            nd = len(mesh.devices)
+            Bp = -(-B // nd) * nd
+            if Bp != B:
+                reps = [1] * (B - 1) + [Bp - B + 1]
+                imgs = np.repeat(imgs, reps, axis=0)
+                img_hs = np.repeat(img_hs, reps, axis=0)
+                content_hws = np.repeat(content_hws, reps, axis=0)
+            bufs = self._run_mesh(mesh, imgs, img_hs, content_hws,
+                                  *_tta_key(scales, angles))
         P = self.config.infer.max_peaks
         out = []
         for b in range(B):

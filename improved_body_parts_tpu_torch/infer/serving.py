@@ -45,8 +45,8 @@ class PipelinedServer:
         # reference's sequential scale loop (parse_skeletons.py:186-209)
         self.scales = tuple(scales) if scales is not None else (1.0,)
         self.angles = tuple(angles)
-        # sharded serving (Predictor.predict_batch(mesh=...)); the port's
-        # Predictor raises NotImplementedError for a mesh
+        # sharded serving: each batch split over the mesh's devices
+        # (Predictor.predict_batch(mesh=...), one model replica a device)
         self.mesh = mesh
         # bounded input queue: a producer faster than the device BLOCKS in
         # submit() instead of accumulating decoded frames in host RAM.

@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from improved_body_parts_tpu_torch.configs import ModelConfig
 from improved_body_parts_tpu_torch.ops import kernels
+from improved_body_parts_tpu_torch.parallel.mesh import global_var_mean
 
 LEAKY_SLOPE = 0.01
 BN_EPS = 1e-5
@@ -167,8 +168,13 @@ def conv_bn(conv: nn.Module, bn: Optional[nn.Module], x: torch.Tensor,
             mean, var = bn.running_mean, bn.running_var
         else:
             # two-pass variance (Flax takes E[x^2] - E[x]^2, which loses
-            # digits when |mean| >> std); biased, as Flax records it
-            var, mean = torch.var_mean(y32, dim=(0, 2, 3), correction=0)
+            # digits when |mean| >> std); biased, as Flax records it; over
+            # the global batch in a data-parallel step (BatchStats)
+            group = getattr(bn_stats, "group", None)
+            if group is None:
+                var, mean = torch.var_mean(y32, dim=(0, 2, 3), correction=0)
+            else:
+                mean, var = global_var_mean(y32, group)
             bn_stats[bn] = (mean.detach(), var.detach())
         mul = torch.rsqrt(var + BN_EPS) * bn.weight
         y = ((y32 - mean[:, None, None]) * mul[:, None, None]

@@ -1,6 +1,7 @@
 """Resizing and bilinear affine warping of image batches, for multi-scale
 and rotation TTA, and for the resident training feed's augmentation (one
-map a sample, ``data/resident.py``).
+map a sample, ``data/resident.py``); and the uint8 resize of a host frame
+that letterboxing needs (``resize_cubic_u8``), without OpenCV.
 
 Port of ``improved_body_parts_tpu/ops/warp.py``. The JAX functions take one
 (H, W, C) array and are ``vmap``ped; these take (..., H, W, C) with any
@@ -9,6 +10,19 @@ with cv2's INTER_CUBIC operator (``torch.einsum``, fp32: a float32 matmul on
 the card runs without TF32 unless ``torch.backends.cuda.matmul.allow_tf32``
 is set); ``affine_warp`` keeps the JAX package's fp32 arithmetic order for
 the sample coordinates, so ``floor`` falls on the same cell.
+
+``resize_cubic_u8`` reproduces ``cv2.resize(img, dsize, fx, fy,
+INTER_CUBIC)`` on uint8 frames bit for bit, as OpenCV computes it itself
+(imgproc/src/resize.cpp): the source coordinate ``(d + 0.5) * scale - 0.5``
+in float, floored; the A = -0.75 coefficients rounded to ``short`` at
+``INTER_RESIZE_COEF_SCALE`` (2048); border taps clamped; the horizontal
+pass summed in ``int``; the vertical pass in ``int``, ``(v + (1 << 21)) >>
+22``, except where OpenCV's SIMD loop takes the row (``VResizeCubicVec_32s8u``:
+8 elements at a time, in float, each product rounded, then rounded half to
+even), and a saturating cast. An OpenCV built with Intel IPP hands most
+sizes of 4 x 4 and more to IPP's own cubic instead
+(``cv2.ipp.useIPP()``), which rounds differently: a value near a half can
+land one level off (tests/test_torch_letterbox.py measures it).
 """
 
 from __future__ import annotations
@@ -40,6 +54,73 @@ def _cubic_operator(s_in: int, s_out: int, device: torch.device,
                     dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(resize1d_cubic_matrix(s_in, s_out, -0.75),
                            dtype=dtype, device=device)
+
+
+INTER_RESIZE_COEF_BITS = 11
+_COEF_SCALE = 1 << INTER_RESIZE_COEF_BITS
+_VEC_LANES = 8         # OpenCV's vertical SIMD loop: 8 int16 lanes (SSE)
+
+
+def _cubic_taps_u8(n_out: int, n_in: int, scale: float):
+    """(taps (n_out, 4) source indices, clamped; coefficients (n_out, 4)
+    int32 at 2048) of OpenCV's fixed-point cubic along one axis."""
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    x = f - s                                    # float32, as OpenCV's fx -= sx
+    one, a = np.float32(1), np.float32(-0.75)
+    c0 = ((a * (x + one) - np.float32(5) * a) * (x + one) + np.float32(8) * a) \
+        * (x + one) - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * x - (a + np.float32(3))) * x * x + one
+    c2 = ((a + np.float32(2)) * (one - x) - (a + np.float32(3))) * (one - x) \
+        * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    coef = np.rint(np.stack([c0, c1, c2, c3], 1) * np.float32(_COEF_SCALE))
+    taps = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3), 0, n_in - 1)
+    return torch.from_numpy(taps), torch.from_numpy(coef.astype(np.int32))
+
+
+def resize_cubic_u8(img: np.ndarray, dsize=None, fx: float = 0.0,
+                    fy: float = 0.0) -> np.ndarray:
+    """``cv2.resize(img, dsize, fx=fx, fy=fy, interpolation=INTER_CUBIC)``
+    for a uint8 (H, W) or (H, W, C) frame, bit for bit with OpenCV's own
+    code (see the module docstring), in torch on the CPU. ``dsize`` is
+    (width, height); without it the size is ``round(W * fx), round(H *
+    fy)`` and the scales are ``fx``/``fy`` themselves, as in cv2."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"expected a uint8 frame, got {img.dtype}")
+    h, w = img.shape[:2]
+    if dsize is None or tuple(dsize) == (0, 0):
+        ow, oh = int(np.rint(w * fx)), int(np.rint(h * fy))
+        inv_x, inv_y = fx, fy
+    else:
+        ow, oh = int(dsize[0]), int(dsize[1])
+        inv_x, inv_y = ow / w, oh / h
+    if ow <= 0 or oh <= 0:
+        raise ValueError(f"resize of a {w}x{h} frame to {ow}x{oh}")
+    c = img.shape[2] if img.ndim == 3 else 1
+    shape = (oh, ow, c) if c > 1 else (oh, ow)     # cv2 returns 1 channel 2-D
+    if (ow, oh) == (w, h):
+        return img.reshape(shape).copy()
+    src = torch.from_numpy(np.ascontiguousarray(img)).reshape(h, w, c)
+    tx, cx = _cubic_taps_u8(ow, w, 1.0 / inv_x)
+    ty, cy = _cubic_taps_u8(oh, h, 1.0 / inv_y)
+    # horizontal pass, summed in int: (h, ow, c)
+    hor = (src.to(torch.int32)[:, tx] * cx[None, :, :, None]).sum(2, dtype=torch.int32)
+    rows = hor[ty].reshape(oh, 4, ow * c)                  # (oh, 4, ow*c)
+    # vertical pass in int: (sum + 2^21) >> 22
+    out = ((rows * cy[:, :, None]).sum(1, dtype=torch.int32) + (1 << 21)) >> 22
+    n_vec = (ow * c) // _VEC_LANES * _VEC_LANES
+    if n_vec:
+        # OpenCV's SIMD loop over the first n_vec elements of a row:
+        # float32 (S3 * b3), then each (S_k * b_k) added in turn, rounded
+        # half to even; b_k = beta_k / 2048^2
+        b = (cy.to(torch.float32) / float(_COEF_SCALE * _COEF_SCALE))[:, :, None]
+        s = rows[:, :, :n_vec].to(torch.float32)
+        acc = s[:, 3] * b[:, 3]
+        for k in (2, 1, 0):
+            acc = s[:, k] * b[:, k] + acc
+        out[:, :n_vec] = torch.round(acc).to(torch.int32)
+    return out.clamp_(0, 255).to(torch.uint8).reshape(shape).numpy()
 
 
 def resize_cubic_cv2(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

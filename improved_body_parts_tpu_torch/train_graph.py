@@ -31,7 +31,14 @@ What capture needs from the step, and where it gets it:
     and graphs given one ``pool`` (the train-mode and the SWA epochs'
     graphs in ``apps/train.py``) reuse each other's temporaries;
   * remat (``torch.utils.checkpoint``, non-reentrant) captures too: the
-    network draws no random numbers, so it keeps no RNG state to restore.
+    network draws no random numbers, so it keeps no RNG state to restore;
+  * a data-parallel step (``mesh=`` with an NCCL group) captures its
+    collectives inside the graph: the communicator is made by one eager
+    all-reduce first (``parallel/mesh.warm``), the warm-up steps run on
+    the current stream (no collective on a side stream), and the capture
+    lets the process group's watchdog thread query the card
+    (``capture_error_mode="thread_local"``). A gloo group cannot be
+    captured: its steps run eagerly, as on the CPU (``eager_reason``).
 
 tests/test_torch_train_graph.py holds replayed steps bit for bit against
 eager steps on the card.
@@ -43,6 +50,8 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+from improved_body_parts_tpu_torch.parallel.mesh import warm
 
 WARMUP_STEPS = 2
 
@@ -79,8 +88,9 @@ class GraphedStep:
     which the graph reads where they lie. ``replay_chunk`` runs it."""
 
     def __init__(self, step_fn: Callable, state, fixed: tuple, example: tuple,
-                 lr: torch.Tensor, pool=None):
+                 lr: torch.Tensor, pool=None, mesh=None):
         dev = lr.device
+        data_parallel = mesh is not None and mesh.data_parallel
         self.state = state
         self.fixed_ptrs = [t.data_ptr() for t in _flat(fixed)]
         self.inputs = [t.clone() for t in _flat(example)]
@@ -89,7 +99,9 @@ class GraphedStep:
 
         saved = [t.detach().clone() for t in _state_tensors(state)]
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = cur if data_parallel else torch.cuda.Stream(dev)
+        if data_parallel:
+            warm(mesh)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
@@ -104,7 +116,8 @@ class GraphedStep:
 
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
+        mode = "thread_local" if data_parallel else "global"
+        with torch.cuda.graph(self.graph, pool=pool, capture_error_mode=mode):
             m = step_fn(state, *fixed, *args, self.lr)
             dt = m["loss"].dtype
             self.metrics = torch.stack([m["loss"], m["grad_norm"].to(dt),
@@ -148,13 +161,23 @@ class MultiStep:
     stacked (n,). On the card the step is captured in a CUDA graph at the
     first call (``GraphedStep``, in ``pool``) and replayed; on the CPU the
     steps run eagerly (the plain version). ``graphed`` is the capture, or
-    None before the first call on the card."""
+    None before the first call on the card. ``mesh``: the data-parallel
+    mesh of the step, if any; ``eager_reason`` says why steps on the card
+    run eagerly (a gloo group), else None."""
 
-    def __init__(self, step_fn: Callable, n_fixed: int = 0, pool=None):
+    def __init__(self, step_fn: Callable, n_fixed: int = 0, pool=None,
+                 mesh=None):
         self.step_fn = step_fn
         self.n_fixed = n_fixed
         self.pool = pool
+        self.mesh = mesh
         self.graphed: Optional[GraphedStep] = None
+        self.eager_reason = None
+        if (mesh is not None and mesh.data_parallel
+                and mesh.device.type == "cuda" and mesh.backend == "gloo"):
+            self.eager_reason = ("the gloo process group cannot be captured "
+                                 "in a CUDA graph: K steps a dispatch run "
+                                 "eagerly")
 
     def __call__(self, state, *args) -> dict:
         fixed, stacked = args[:self.n_fixed], args[self.n_fixed:-1]
@@ -163,7 +186,7 @@ class MultiStep:
         stacked = _rebuild(stacked, iter([t.to(dev, non_blocking=True)
                                           for t in _flat(stacked)]))
         n = lrs.shape[0]
-        if dev.type != "cuda":
+        if dev.type != "cuda" or self.eager_reason:
             outs = [self.step_fn(state, *fixed,
                                  *_rebuild(stacked, iter([t[k] for t in _flat(stacked)])),
                                  lrs[k])
@@ -172,6 +195,6 @@ class MultiStep:
         if self.graphed is None:
             first = _rebuild(stacked, iter([t[0] for t in _flat(stacked)]))
             self.graphed = GraphedStep(self.step_fn, state, fixed, first,
-                                       lrs[0], self.pool)
+                                       lrs[0], self.pool, self.mesh)
         out = self.graphed.replay_chunk(state, fixed, stacked, lrs)
         return {"loss": out[:, 0], "grad_norm": out[:, 1], "skipped": out[:, 2]}

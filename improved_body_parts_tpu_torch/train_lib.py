@@ -30,7 +30,22 @@ Also ported (:177-322): the step of the device-resident feed
 ``resident_inputs`` gathers, warps and decimates on the device, and the
 K-steps-per-dispatch functions (``make_multi_train_step``,
 ``make_multi_resident_train_step``), a CUDA graph of the captured step on
-the card. One card; multi-GPU DDP with SyncBatchNorm is not ported.
+the card.
+
+Data parallel (``mesh=``, a ``parallel/mesh.Mesh`` with a process group;
+one process a card): each rank takes its slice of the global batch; the
+train-mode BatchNorm statistics are the global batch's
+(``parallel/mesh.BatchStats``, with the gradient flowing back through the
+reduction); the gradients and the loss are averaged over the ranks by one
+all-reduce of a flat buffer, before the global norm, the clip and the
+abnormal-loss rule, so every rank takes the same decision and the same
+update. The result is the step of the JAX package on the global batch,
+whose loss divides by the batch. The model is not wrapped in
+``DistributedDataParallel``: the step takes its gradients with
+``torch.autograd.grad``, where DDP's reducer hooks would never fire.
+A resident store sharded over the ranks (``--resident-shard-store``)
+needs nothing more: each rank's plan indexes its own record range
+(``ResidentFeed.plan_batches(store_shards=world)``), with no collective.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ from improved_body_parts_tpu_torch.configs import CanonicalConfig, TrainConfig
 from improved_body_parts_tpu_torch.data.resident import BORDER_BGR
 from improved_body_parts_tpu_torch.losses import multi_task_loss
 from improved_body_parts_tpu_torch.ops.warp import affine_warp
+from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
 from improved_body_parts_tpu_torch.train_graph import MultiStep
 
 BN_MOMENTUM = 0.9        # Flax decay 0.9 == torch momentum 0.1
@@ -120,9 +136,13 @@ def _select_(ok: torch.Tensor, new: List[torch.Tensor],
         torch.where(ok, n, o, out=o)
 
 
+def _data_parallel(mesh) -> bool:
+    return mesh is not None and mesh.data_parallel
+
+
 def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
                     use_focal: bool = True, freeze_bn: bool = False,
-                    compact_gt: bool = False):
+                    compact_gt: bool = False, mesh=None):
     """Build the train step ``(state, imgs, mask, heat, lr) -> metrics``.
 
     imgs: (B, H, W, 3) float in [0, 1], or uint8 (normalized in the step as
@@ -136,7 +156,9 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     statistics fixed (the reference's SWA epochs, train_distributed_SWA.py:221).
     ``state`` is updated in place; the returned metrics are 0-d tensors on
     the device: ``loss``, ``grad_norm`` and ``skipped`` (1.0 when the
-    abnormal-loss rule kept the old state).
+    abnormal-loss rule kept the old state). With a data-parallel ``mesh``
+    the inputs are this rank's slice, and the metrics are the global
+    batch's, the same on every rank.
     """
     tcfg = cfg.train
     renderer = None
@@ -145,6 +167,7 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
         renderer = DeviceHeatmapper(cfg)
     names = [k for k, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
+    group = mesh.group if _data_parallel(mesh) else None
 
     def step_fn(state: TrainState, imgs, mask, heat, lr):
         if state.model is not model:
@@ -155,12 +178,22 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
             imgs = imgs.float() / 255.0
         if compact_gt:
             heat = renderer.render(*heat)
-        bn_stats = None if freeze_bn else {}       # a dict: train-mode BN
+        # a dict: train-mode BN (over the global batch with a group)
+        bn_stats = (None if freeze_bn else
+                    {} if group is None else mesh_lib.BatchStats(group))
         outs = model(imgs, bn_stats=bn_stats)
         loss = multi_task_loss(outs, heat, mask, tcfg, use_focal=use_focal)
         grads = list(torch.autograd.grad(loss, params))
 
         with torch.no_grad():
+            if group is not None:
+                # the global batch's gradient and loss: every rank's mean
+                # over its slice, averaged over the ranks in one all-reduce
+                *grads, loss = mesh_lib.all_reduce_mean(
+                    [*grads, loss.detach()], group)
+                # the loss alone: a view would keep the flat buffer (every
+                # gradient) alive for as long as the caller keeps the metric
+                loss = loss.clone()
             gnorm = global_norm(grads)
             if tcfg.max_grad_norm > 0:
                 scale = torch.clamp(tcfg.max_grad_norm / (gnorm + 1e-6), max=1.0)
@@ -225,17 +258,20 @@ def resident_inputs(store: Dict[str, torch.Tensor], idx: torch.Tensor,
 
 
 def make_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
-                             use_focal: bool = True, freeze_bn: bool = False):
+                             use_focal: bool = True, freeze_bn: bool = False,
+                             mesh=None):
     """The train step of the device-resident feed (``data/resident.py``):
     ``(state, store, idx, inv_m, joints, lr) -> metrics``, where ``store``
     is the dict of uint8 arrays on the device, ``idx`` (B,) the records,
     ``inv_m`` (B, 2, 3) the inverse augmentation maps (identity when
     unaugmented) and ``joints`` (B, P, 18, 3) the joints warped on the host.
     ``resident_inputs`` (fp32; float64 for a float64 model), then the
-    compact-GT step of ``make_train_step``.
+    compact-GT step of ``make_train_step``. With a data-parallel ``mesh``,
+    ``store`` may hold only this rank's record range and ``idx`` index it
+    (a sharded store): the gather is local.
     reference: JAX ``train_lib.make_resident_train_step``."""
     step = make_train_step(model, cfg, use_focal=use_focal,
-                           freeze_bn=freeze_bn, compact_gt=True)
+                           freeze_bn=freeze_bn, compact_gt=True, mesh=mesh)
     dtype = torch.promote_types(next(model.parameters()).dtype, torch.float32)
 
     def resident_fn(state: TrainState, store, idx, inv_m, joints, lr):
@@ -247,31 +283,35 @@ def make_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
 
 def make_multi_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
                           use_focal: bool = True, freeze_bn: bool = False,
-                          compact_gt: bool = False, pool=None) -> MultiStep:
+                          compact_gt: bool = False, pool=None,
+                          mesh=None) -> MultiStep:
     """n train steps a call: ``(state, imgs, mask, heat, lr) -> metrics``,
     where every input carries a leading step axis of length n (imgs (n, B,
     H, W, 3), ``lr`` (n,)) and the metrics come back stacked (n,). On the
     card the step is captured once in a CUDA graph and replayed n times;
     ``pool`` (``torch.cuda.graph_pool_handle()``) is the memory pool the
     graph shares, e.g. with the SWA epochs' graph. On the CPU, n eager
-    steps. reference: JAX ``train_lib.make_multi_train_step`` (one
-    ``lax.scan`` of the n steps)."""
+    steps. With a data-parallel ``mesh`` the collectives are inside the
+    graph (NCCL); a gloo group cannot be captured, so its n steps run
+    eagerly (``MultiStep.eager_reason``). reference: JAX
+    ``train_lib.make_multi_train_step`` (one ``lax.scan`` of the n steps)."""
     return MultiStep(make_train_step(model, cfg, use_focal=use_focal,
-                                     freeze_bn=freeze_bn, compact_gt=compact_gt),
-                     n_fixed=0, pool=pool)
+                                     freeze_bn=freeze_bn, compact_gt=compact_gt,
+                                     mesh=mesh),
+                     n_fixed=0, pool=pool, mesh=mesh)
 
 
 def make_multi_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
                                    use_focal: bool = True, freeze_bn: bool = False,
-                                   pool=None) -> MultiStep:
+                                   pool=None, mesh=None) -> MultiStep:
     """n resident train steps a call: ``(state, store, idx (n, B), inv_m
     (n, B, 2, 3), joints (n, B, P, 18, 3), lr (n,)) -> metrics`` stacked
     (n,), each step gathering from the same store; on the card a CUDA graph
     as ``make_multi_train_step``. reference: JAX
     ``train_lib.make_multi_resident_train_step``."""
     return MultiStep(make_resident_train_step(model, cfg, use_focal=use_focal,
-                                              freeze_bn=freeze_bn),
-                     n_fixed=1, pool=pool)
+                                              freeze_bn=freeze_bn, mesh=mesh),
+                     n_fixed=1, pool=pool, mesh=mesh)
 
 
 def make_eval_step(model: torch.nn.Module, cfg: CanonicalConfig,

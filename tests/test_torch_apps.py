@@ -345,5 +345,6 @@ def test_train_cli_needs_a_card_and_refuses_unported_modes(monkeypatch, tmp_path
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device is required"):
         ttrain.main(["--tiny-model", "-p", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --multihost needs torchrun's environment or a coordinator
+    with pytest.raises(ValueError, match="coordinator"):
         ttrain.main(["--device", "cpu", "-p", str(tmp_path), "--multihost"])

@@ -295,10 +295,11 @@ def test_pipelined_server_tta_drives_port(pair):
 
 
 def test_unported_serving_options_raise(pair):
-    """Only mesh-sharded serving (ROADMAP A13) still raises."""
+    """Mesh-sharded serving is ported (tests/test_torch_mesh.py); a mesh
+    that is not a ``parallel/mesh.Mesh`` is refused."""
     _, tpred = pair
     imgs = np.zeros((1, SIZE, SIZE, 3), np.uint8)
     for kw in (dict(mesh=object()), dict(mesh=object(), scales=(0.5, 1.0)),
                dict(mesh=object(), angles=(0.0, 10.0))):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             tpred.predict_batch(imgs, **kw)

@@ -32,6 +32,7 @@ from improved_body_parts_tpu.data.synthetic import random_people
 from improved_body_parts_tpu.models.imhn import create_model
 from improved_body_parts_tpu_torch import train_lib
 from improved_body_parts_tpu_torch.apps import train as tapp
+from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
 from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
 from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_resident import (
@@ -195,7 +196,7 @@ def test_epoch_of_five_steps_in_chunks_of_two(synthetic_stores):
     plans = resident_plans(synthetic_stores, steps=5, seed=9)
     lrs = [1e-2 / (1 + i) for i in range(5)]
     items = [(*p, np.asarray(lr, np.float32)) for p, lr in zip(plans, lrs)]
-    chunks = list(tapp.staged_chunks(iter(items), CPU, k=2))
+    chunks = list(mesh_lib.staged_chunks(CPU, iter(items), k=2))
     assert [n for n, _ in chunks] == [2, 2, 1]
     assert all(c[0].shape == (n, B) and c[3].shape == (n,) for n, c in chunks)
     store = synthetic_stores[1].device_arrays(CPU)
@@ -258,6 +259,9 @@ def test_app_takes_steps_per_dispatch_on_every_feed(tmp_path, feed):
 
 
 def test_app_refuses_a_sharded_store(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13"):
-        tapp.main(APP + ["--feed", "resident", "--resident-shard-store",
-                         "-p", str(tmp_path)])
+    """A sharded store needs the resident feed; on one process it is the
+    whole store (one shard)."""
+    with pytest.raises(ValueError, match="--feed resident"):
+        tapp.main(APP + ["--resident-shard-store", "-p", str(tmp_path)])
+    assert tapp.main(APP + ["--feed", "resident", "--resident-shard-store",
+                            "-p", str(tmp_path)]) == 0
