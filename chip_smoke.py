@@ -46,7 +46,16 @@ against eager; ``apps.train`` under ``torchrun --nproc-per-node 1``
 written and resumed; the dry run
 (``improved_body_parts_tpu_torch.tools.dryrun_multichip``) over the cards;
 and the letterbox without cv2 on camera-sized frames (equal to a plain
-numpy version, timed) with 64 640x480 requests served.
+numpy version, timed) with 64 640x480 requests served; then the
+measurement and evaluation entry points (phase 13), each through the
+function its CLI wraps: ``apps.bench`` with its full protocol on the bf16,
+fused and int8 arms (each kernel's launches counted exactly),
+``apps.inference_speed`` with MFU, ``tools.profile_postproc``'s stages,
+``tools.stress_grouping`` at 2, 8 and 20 people, ``tools.bench_train_step``
+(dense K = 1, resident K = 4 on the graph), ``tools.export_quantized`` on
+an ``apps.train``-layout ``.pth`` served bit for bit from the file,
+``tools.eval_curve`` over two epochs and ``tools.e2e_trained_smoke``'s
+scoring.
 
     python3 chip_smoke.py
 
@@ -1416,7 +1425,7 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
               f"apps.demo_image.build_predictor: {kernels.int8_conv.launches} "
               f"int8_conv launches for one batch", flush=True)
         del served
-    del pred, qmodel
+    del pred
     torch.cuda.empty_cache()
 
     def total(rs, f):
@@ -1480,7 +1489,7 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
                 convs_per_batch=n_convs, distinct_shapes=len(rows),
                 launches_by_route_per_batch=routes, forward_ms=forward_ms,
                 bf16_to_bf16_ms=bf16_sum["ms"], mma_sync_kernel_ms=bf16_sum["mma_sync_ms"])
-    return [quant_row, conv_row], line
+    return [quant_row, conv_row], line, qmodel
 
 
 # ---------------------------------------------------------------------------
@@ -2169,6 +2178,229 @@ def multi_gpu(model, config, frames, requests, device, smi, graph_ms: float) -> 
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the measurement and evaluation entry points
+# ---------------------------------------------------------------------------
+
+MEASURE_TRAIN_WARM = 2
+MEASURE_TRAIN_TIMED = 4
+EVAL_CURVE_FRAMES = 8
+
+
+def _expect_launches(what: str, want: dict) -> dict:
+    """The launch counts since the last reset; raises unless each kernel of
+    ``want`` launched exactly that many times."""
+    from improved_body_parts_tpu_torch.ops import kernels
+    got = {k: getattr(kernels, k).launches for k in
+           ("nms", "fused_peaks", "int8_quantize", "int8_conv")}
+    for k, n in want.items():
+        if got[k] != n:
+            raise AssertionError(f"{what}: {k} launched {got[k]} times, "
+                                 f"expected {n} ({got})")
+    return got
+
+
+def _two_epochs(model, config, root: str, device) -> list:
+    """``<root>/pth/epoch_0.pth`` (``model``'s weights) and ``epoch_1.pth``
+    (those after two SGD steps on synthetic 512² batches of 2, through
+    ``staged_batches``), the layout ``apps.train`` writes; their paths."""
+    import os
+
+    from improved_body_parts_tpu_torch import train_lib
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+    from improved_body_parts_tpu_torch.parallel.mesh import staged_batches
+    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+
+    pth = os.path.join(root, "pth")
+    net = copy.deepcopy(model)
+    state = train_lib.create_train_state(net, config.train)
+    ckpt.save_train_state(pth, train_lib.state_payload(state, config.train, epoch=0),
+                          step=0)
+    step = train_lib.make_train_step(net, config)
+    ds = SyntheticDataset(config, length=8, seed=SEED, image_size=config.height)
+    losses = [step(state, *b, config.train.learning_rate)["loss"]
+              for b in staged_batches(device, ds.batches(2, 2, seed=3), depth=0)]
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError("non-finite loss in the two SGD steps")
+    ckpt.save_train_state(pth, train_lib.state_payload(state, config.train, epoch=1),
+                          step=1)
+    del net, state, step
+    torch.cuda.empty_cache()
+    return [ckpt.checkpoint_path(pth, e) for e in (0, 1)]
+
+
+def measurement_entry_points(model, qmodel, config, device, smi) -> dict:
+    """Phase 13: the port's benchmark and evaluation entry points, each
+    through the function its CLI wraps, on the phase-3 model and phase 10's
+    int8 model: (a) ``apps.bench`` bf16, fused and int8 with the launches
+    each arm must make; (b) ``apps.inference_speed`` bf16 and int8 with
+    MFU; (c) ``tools.profile_postproc``'s stages at 128²; (d)
+    ``tools.stress_grouping`` at 2, 8 and 20 people; (e)
+    ``tools.bench_train_step`` dense K = 1 and resident K = 4 on the graph;
+    (f) ``tools.export_quantized`` from an ``apps.train``-layout ``.pth``,
+    one batch served from the file bit for bit against in-process PTQ;
+    (g) ``tools.eval_curve`` over two epochs' ``.pth`` on synthetic
+    frames; (h) ``tools.e2e_trained_smoke``'s scoring on the second."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from improved_body_parts_tpu_torch.apps import bench, inference_speed
+    from improved_body_parts_tpu_torch.apps.evaluate import synthetic_coco
+    from improved_body_parts_tpu_torch.infer.predict import Predictor
+    from improved_body_parts_tpu_torch.models import quantize as qz
+    from improved_body_parts_tpu_torch.ops import kernels
+    from improved_body_parts_tpu_torch.tools import (
+        bench_train_step, e2e_trained_smoke, eval_curve, export_quantized,
+        profile_postproc, stress_grouping,
+    )
+    from improved_body_parts_tpu_torch.utils.checkpoint import load_reference_pth
+
+    line = {}
+    card = torch.cuda.get_device_name(0)
+    # (a) the e2e benchmark, its full protocol, each arm's launches counted:
+    # a post-processing for each realistic table, the 4 warm-up calls and
+    # the two timed runs' batches; a forward for the last two
+    frames = bench.bench_frames(512, synthetic=False)
+    n_post = bench.BATCH + 4 + 2 * bench.N_BATCHES
+    n_fwd = 4 + 2 * bench.N_BATCHES
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        qmodel.predict_maps(torch.zeros(2, 512, 512, 3, device=device))
+    # launches of one int8 serving forward (the read-out runs 296 of the
+    # 308 conv blocks)
+    q_per_fwd = kernels.int8_quantize.launches
+    convs = kernels.int8_conv.launches
+    arms = {"bf16": (model, False, dict(nms=n_post, fused_peaks=0, int8_conv=0)),
+            "fused": (model, True, dict(nms=0, fused_peaks=n_post, int8_conv=0)),
+            "int8": (qmodel, False, dict(nms=n_post, fused_peaks=0,
+                                         int8_conv=convs * n_fwd,
+                                         int8_quantize=q_per_fwd * n_fwd))}
+    line["bench"] = {}
+    for arm, (net, fused, want) in arms.items():
+        pred = Predictor(net, config, device=device, fused_peaks=fused)
+        kernels.reset_launch_counts()
+        out = bench.run(pred, frames, bench.realistic_packed_buffers(pred, bench.BATCH),
+                        n_batches=bench.N_BATCHES)
+        torch.cuda.synchronize()
+        got = _expect_launches(f"apps.bench {arm}", want)
+        if out["warm_found"] == 0:
+            raise AssertionError(f"apps.bench {arm}: the GT tables grouped nobody")
+        print(json.dumps(dict(bench.result_line(out["fps"]), arm=arm)), flush=True)
+        print(f"apps.bench {arm}: {out['fps']:.2f} frames/s e2e ({out['n_frames']} "
+              f"frames, batch {out['batch']}, {out['depth']} threads); ingest "
+              f"{out['ingest_fps']:.2f} frames/s; single image "
+              f"{out['single_latency_ms']:.1f} ms; launches {got} ({smi})",
+              flush=True)
+        line["bench"][arm] = dict(out, launches=got)
+        del pred
+
+    # (b) the network alone, with MFU
+    imgs = torch.from_numpy(np.random.RandomState(0).rand(4, 512, 512, 3)
+                            .astype(np.float32)).to(device)
+    line["inference_speed"] = {}
+    for arm, net in (("bf16", model), ("int8", qmodel)):
+        res = inference_speed.measure(net, imgs, 20, mfu=True, int8=arm == "int8",
+                                      flop_model=model)
+        for text in inference_speed.report_lines(res, card):
+            print(f"apps.inference_speed {arm}: {text} ({smi})", flush=True)
+        line["inference_speed"][arm] = res
+
+    # (c) the post-processing stage by stage: 17 calls a stage (a warm-up
+    # and 16 timed); nms in every stage but the fused one
+    kernels.reset_launch_counts()
+    rows = profile_postproc.profile(device, hw=128, iters=16)
+    _expect_launches("profile_postproc", dict(nms=4 * 17, fused_peaks=17))
+    for text in profile_postproc.table_lines(rows, device, 128,
+                                             config.infer.max_peaks):
+        print(f"profile_postproc: {text} ({smi})", flush=True)
+    line["profile_postproc_ms"] = rows
+
+    # (d) crowd grouping
+    line["stress_grouping"] = []
+    for n in (2, 8, 20):
+        kernels.reset_launch_counts()
+        st = stress_grouping.run_scene(n, 30, device)
+        _expect_launches(f"stress_grouping {n}", dict(nms=1))
+        if st["persons_found"] != n:
+            raise AssertionError(f"stress_grouping: {st['persons_found']} of {n} found")
+        print(json.dumps(dict(st, device=card)), flush=True)
+        line["stress_grouping"].append(st)
+
+    # (e) the train step against the feed
+    mcfg, init = bench_train_step.build_model(config, tiny=False, remat=True,
+                                              device=device)
+    tcfg = dataclasses.replace(config, model=mcfg)
+    line["bench_train_step"] = []
+    for feed, k in (("dense", 1), ("resident", 4)):
+        rec = bench_train_step.run_config(
+            init, tcfg, feed, k, steps=MEASURE_TRAIN_TIMED, batch=TRAIN_BATCH,
+            device=device, warmup=MEASURE_TRAIN_WARM)
+        if k > 1 and not rec["graph"]:
+            raise AssertionError("bench_train_step resident K=4 did not run the graph")
+        print(json.dumps(rec), flush=True)
+        line["bench_train_step"].append(rec)
+    del init
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        paths = _two_epochs(model, config, root, device)
+
+        # (f) the int8 export, served from the file against in-process PTQ
+        fp = copy.deepcopy(model)
+        fp.load_state_dict(load_reference_pth(paths[0]))
+        batches = export_quantized.calibration_batches(config, config.height)
+        out_path = os.path.join(root, "int8.pth")
+        inproc, n_bytes, secs = export_quantized.export(fp, batches, out_path)
+        loaded = qz.load_quantized(config.model, out_path, device=device)
+        nb = len(frames[0])
+        hs = np.full((nb,), 512.0, np.float32)
+        chws = np.tile(np.float32([512.0, 512.0]), (nb, 1))
+        kernels.reset_launch_counts()
+        a = Predictor(loaded, config, device=device)._run(frames[0], hs, chws)[0].cpu()
+        _expect_launches("export_quantized serving", dict(int8_conv=convs, nms=1))
+        b = Predictor(inproc, config, device=device)._run(frames[0], hs, chws)[0].cpu()
+        if not torch.equal(a, b):
+            raise AssertionError("the int8 export does not serve as in-process PTQ")
+        print(f"export_quantized: {n_bytes / 1e6:.0f} MB from epoch_0.pth, "
+              f"calibrated on {sum(len(x) for x in batches)} images in {secs:.1f} s; "
+              f"one batch served from the file equals in-process PTQ bit for bit "
+              f"(packed buffers)", flush=True)
+        line["export_quantized"] = dict(mb=n_bytes / 1e6, seconds=secs, bitwise=True)
+        del fp, inproc, loaded
+
+        # (g) the AP curve over both epochs (and one missing) on in-memory frames
+        eval_frames, gt = synthetic_coco(EVAL_CURVE_FRAMES, size=512)
+        pred = Predictor(copy.deepcopy(model), config, device=device)
+        kernels.reset_launch_counts()
+        rows = eval_curve.curve(pred, eval_curve.arms(root, [0, 1, 5]),
+                                eval_frames, gt, log=lambda s: None)
+        _expect_launches("eval_curve", dict(nms=2 * EVAL_CURVE_FRAMES))
+        keys = {"arm", "ap", "ap50", "ap75", "ar", "n_dets", "seconds"}
+        if [r["arm"] for r in rows] != ["epoch0", "epoch1"] or any(
+                set(r) != keys or not 0.0 <= r["ap"] <= 1.0 for r in rows):
+            raise AssertionError(f"eval_curve rows malformed: {rows}")
+        for r in rows:
+            print(f"eval_curve: {json.dumps(r)}", flush=True)
+        line["eval_curve"] = rows
+
+        # (h) the trained-checkpoint smoke's scoring on the second epoch
+        with torch.no_grad():
+            pred.model.load_state_dict(load_reference_pth(paths[1]))
+        ok, scenes = e2e_trained_smoke.score_scenes(
+            pred, 512, log=lambda s: print(f"e2e_trained_smoke: {s}", flush=True))
+        scene_keys = {"scene", "people", "matched", "mean_err_px", "detections",
+                      "dropped_peaks", "ok"}
+        if len(scenes) != 3 or any(set(r) != scene_keys for r in scenes):
+            raise AssertionError(f"e2e_trained_smoke rows malformed: {scenes}")
+        print(f"e2e_trained_smoke: {'passes' if ok else 'does not pass'} on "
+              "weights two SGD steps from random (a well-formed result is "
+              "what is checked)", flush=True)
+        line["e2e_trained_smoke"] = dict(ok=ok, scenes=scenes)
+        del pred
+    torch.cuda.empty_cache()
+    return line
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2366,8 +2598,8 @@ def main() -> int:
 
     # -- 10: int8 ----------------------------------------------------------------------
     phase("10 int8: PTQ of Canonical, int8_conv vs plain, int8 serving")
-    int8_rows, int8_line = int8(model_cpu, config, frames, requests, device, smi,
-                                net_ms)
+    int8_rows, int8_line, qmodel = int8(model_cpu, config, frames, requests,
+                                        device, smi, net_ms)
     kernel_rows += int8_rows
     print(json.dumps({"variants": variant_line, "int8": int8_line}), flush=True)
 
@@ -2384,6 +2616,13 @@ def main() -> int:
     mg_line = multi_gpu(model, config, frames, requests, device, smi,
                         resident_line[f"resident_k{DISPATCH_K}_graph"]["step_ms"])
     print(json.dumps({"multi_gpu": mg_line}), flush=True)
+
+    # -- 13: the measurement and evaluation entry points --------------------------------
+    phase("13 measurement and evaluation entry points: apps.bench (bf16, fused, int8), "
+          "apps.inference_speed, profile_postproc, stress_grouping, bench_train_step, "
+          "export_quantized, eval_curve, e2e_trained_smoke")
+    measure_line = measurement_entry_points(model, qmodel, config, device, smi)
+    print(json.dumps({"measurement": measure_line}), flush=True)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

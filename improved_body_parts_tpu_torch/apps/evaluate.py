@@ -159,18 +159,20 @@ def _cmu_to_coco_gt(joints: np.ndarray) -> np.ndarray:
 
 
 def synthetic_coco(n_images: int, size: int = 512, seed: int = 777,
-                   max_people: int = 3):
+                   max_people: int = 3, sizes: Optional[Sequence[int]] = None):
     """``n_images`` rendered multi-person scenes (``data.synthetic``) as
     [(image_id, BGR uint8 frame)] and their COCO-format ground truth, the
-    set ``tools/make_synthetic_coco.py`` writes to disk."""
+    set ``tools/make_synthetic_coco`` writes to disk. ``sizes`` cycles
+    these square sizes over the scenes instead of ``size``."""
     frames, images, annotations = [], [], []
     for i in range(n_images):
         rng = np.random.RandomState(seed * 100003 + i)
-        joints = random_people(rng, size, size, max_people=max_people)
-        frames.append((i, (render_image(joints, size, size, rng) * 255)
+        S = sizes[i % len(sizes)] if sizes else size
+        joints = random_people(rng, S, S, max_people=max_people)
+        frames.append((i, (render_image(joints, S, S, rng) * 255)
                        .astype(np.uint8)))
         images.append({"id": i, "file_name": f"synthetic_{i:06d}.png",
-                       "width": size, "height": size})
+                       "width": S, "height": S})
         for person in joints:
             coco = _cmu_to_coco_gt(person)
             x0, y0 = float(coco[:, 0].min()), float(coco[:, 1].min())

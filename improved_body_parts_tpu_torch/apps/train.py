@@ -400,7 +400,7 @@ def main(argv=None) -> int:
         print(f"wrote SWA-averaged model ({int(state.swa_count)} snapshots) "
               f"to {swa_dir}")
     if multi:
-        torch.distributed.destroy_process_group()
+        mesh_lib.shutdown(mesh, train_step, swa_step)
     print("done")
     return 0
 

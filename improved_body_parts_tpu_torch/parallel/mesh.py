@@ -224,6 +224,23 @@ def all_reduce_mean(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     return out
 
 
+def shutdown(mesh: Mesh, *steps) -> None:
+    """Leave the data-parallel group of ``mesh`` after the last step: drop
+    the CUDA graphs of ``steps`` (``train_graph.MultiStep.close``; other
+    steps are passed over), wait for the card, meet the other ranks and
+    destroy the group. NCCL's communicator must outlive every CUDA graph
+    that captured its collectives: with a graph still alive, every rank of
+    the four-card dry run waited in ``destroy_process_group`` for ever."""
+    for step in steps:
+        close = getattr(step, "close", None)
+        if close is not None:
+            close()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def warm(mesh: Mesh) -> None:
     """One eager all-reduce on the mesh's device, waited for: the
     communicator exists before a CUDA graph captures the step's

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import os
 import socket
 import sys
@@ -52,6 +53,12 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _log(rank: int, t0: float, what: str) -> None:
+    """One progress line on stderr, so a hang shows the last stage reached."""
+    print(f"[rank {rank} +{time.monotonic() - t0:.1f} s] {what}",
+          file=sys.stderr, flush=True)
 
 
 def _checksum(state) -> tuple:
@@ -86,7 +93,7 @@ def _model(config, device):
                         generator=g).to(device)
 
 
-def _serve(config, state, n: int, device_kind: str, device) -> str:
+def _serve(config, state, n: int, device_kind: str, device, log) -> str:
     """Rank 0: int8 and multi-scale TTA serving over a mesh of n devices
     against the same predictor without the mesh."""
     from improved_body_parts_tpu_torch.infer.predict import Predictor
@@ -116,6 +123,7 @@ def _serve(config, state, n: int, device_kind: str, device) -> str:
             assert km.shape == kf.shape, (what, km.shape, kf.shape)
             np.testing.assert_allclose(km, kf, atol=1e-4, err_msg=what)
             np.testing.assert_allclose(sm, sf, atol=1e-4, err_msg=what)
+        log(f"served {what} over the mesh")
         lines.append(f"{what}: {len(frames)} frames over {n} devices == "
                      f"unsharded ({sum(len(k) for k, _ in flat)} people; "
                      f"launches on the mesh {launches})")
@@ -132,10 +140,12 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
     from improved_body_parts_tpu_torch.utils import checkpoint as ckpt_lib
 
+    t0 = time.monotonic()
     torch.set_num_threads(1)
     device = mesh_lib.initialize_multihost(f"localhost:{port}", world, rank,
                                            device=device_kind, timeout_s=300)
     mesh = mesh_lib.make_mesh()
+    _log(rank, t0, f"joined the group on {device}")
     config = _config()
     torch.backends.cudnn.deterministic = True   # restored == unrestored
     state = train_lib.create_train_state(_model(config, device), config.train)
@@ -153,6 +163,7 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     losses = [float(step(state, *batch(), LR)["loss"]) for _ in range(2)]
     assert all(np.isfinite(losses)) and int(state.step) == 2, losses
     _agree((losses, _checksum(state)), "two remat'd train steps")
+    _log(rank, t0, "two remat'd train steps agree")
 
     train_lib.swa_update(state)
     train_lib.swa_swap(state)
@@ -161,6 +172,7 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     swa_loss = float(swa_step(state, *batch(), LR * 0.1)["loss"])
     assert np.isfinite(swa_loss) and int(state.swa_count) == 1
     _agree((swa_loss, _checksum(state)), "SWA swap and frozen-BN step")
+    _log(rank, t0, "SWA swap and frozen-BN step agree")
 
     # .pth round trip: rank 0 writes, every rank restores and steps on
     if rank == 0:
@@ -176,6 +188,7 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     assert float(m_a["loss"]) == float(m_b["loss"]), (m_a, m_b)
     assert _checksum(state) == _checksum(restored)
     _agree(_checksum(restored), "restored state after a step")
+    _log(rank, t0, "restored state agrees")
 
     # the resident feed with the store sharded over the ranks
     ds = SyntheticDataset(config, length=4 * world, image_size=SIZE)
@@ -197,22 +210,28 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     k_losses = [float(x) for x in m_k["loss"]]
     assert np.isfinite(res_loss) and all(np.isfinite(k_losses))
     _agree((res_loss, k_losses, _checksum(state)), "sharded resident steps")
+    _log(rank, t0, "sharded resident steps agree")
 
     backend = mesh.backend
-    dist.barrier()
-    dist.destroy_process_group()
+    route = "graph" if multi.graphed is not None else "eager"
+    # the K = 2 graph captured NCCL all-reduces: it goes before the group
+    mesh_lib.shutdown(mesh, multi)
+    _log(rank, t0, "group closed")
     if rank == 0:
         # after the group is gone: no rank waits in a collective on the
         # cards rank 0 now serves on
-        serving = _serve(config, state, world, device_kind, device)
-        route = "graph" if multi.graphed is not None else "eager"
+        serving = _serve(config, state, world, device_kind, device,
+                         lambda what: _log(rank, t0, what))
         print(f"dryrun_multichip({world}, {backend}) OK: losses {losses} "
               f"swa {swa_loss:.4f} restored {float(m_b['loss']):.4f} "
               f"resident (sharded store) {res_loss:.4f} K=2 ({route}) "
               f"{k_losses}; {serving}", flush=True)
 
 
-def _entry(rank, world, port, device_kind, ckpt_dir):
+def _entry(rank, world, port, device_kind, ckpt_dir, hang_s):
+    # a rank still running after hang_s prints every thread's stack, so a
+    # hang shows where it waits before the parent kills it
+    faulthandler.dump_traceback_later(hang_s, exit=False)
     try:
         rank_main(rank, world, port, device_kind, ckpt_dir)
     except BaseException:
@@ -233,7 +252,7 @@ def run(n: int, device_kind: str = "cuda", timeout: float = 600.0) -> int:
             return 2
     with tempfile.TemporaryDirectory() as ckpt_dir:
         ctx = mp.start_processes(_entry, args=(n, free_port(), device_kind,
-                                               ckpt_dir),
+                                               ckpt_dir, max(timeout - 15.0, 1.0)),
                                  nprocs=n, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:

@@ -198,3 +198,13 @@ class MultiStep:
                                        lrs[0], self.pool, self.mesh)
         out = self.graphed.replay_chunk(state, fixed, stacked, lrs)
         return {"loss": out[:, 0], "grad_norm": out[:, 1], "skipped": out[:, 2]}
+
+    def close(self) -> None:
+        """Drop the captured graph and its memory; a later call captures
+        anew. Under NCCL the graph holds the communicator's captured
+        collectives, and it must be gone before the group is destroyed
+        (``parallel/mesh.shutdown``): it is reset here, whatever else still
+        holds the ``GraphedStep``."""
+        if self.graphed is not None:
+            self.graphed.graph.reset()
+        self.graphed = None

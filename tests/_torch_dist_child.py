@@ -10,11 +10,16 @@ the CPU; "cuda:0" puts every rank on the one card, still over gloo), and
 either global batches (``kind="train"``: (imgs, mask, joints, mask_all) a
 step, the compact feed) or a resident store with global plans
 (``kind="resident"``: the store's images, and plans made with
-``store_shards=world``). Each rank keeps its ``process_batch_slice`` of
-every batch (and its record range of the store), takes the steps of
-``train_lib`` with the data-parallel mesh, and writes ``rank<r>.pt``: the
-metrics of every step, the bytes of storage each step's metrics hold, and
-the state payload after the last.
+``store_shards=world``; ``k`` > 1 takes them k steps a dispatch). Each
+rank keeps its ``process_batch_slice`` of every batch (and its record
+range of the store), takes the steps of ``train_lib`` with the
+data-parallel mesh, leaves the group through ``parallel/mesh.shutdown``,
+and writes ``rank<r>.pt``: the metrics of every step, the bytes of storage
+each step's metrics hold, and the state payload after the last. With
+``graph_probe`` the K-steps dispatch holds a stand-in for a captured CUDA
+graph, which the rank also keeps a reference to, and
+``graph_alive_at_destroy`` says whether that graph was not yet reset when
+the group was destroyed.
 
 Every rank has a time limit (``run_ranks(timeout=)``); on a failure or
 the limit every rank is killed with SIGKILL, so no rank is left behind
@@ -104,20 +109,53 @@ def main(spec_path, out_dir, rank, world, port):
         st = spec["store"]
         store = ResidentStore(st["images"], None, None, st["joints"], st["objpos"],
                               st["scale"]).device_arrays(device, shard=(rank, world))
-        step = train_lib.make_resident_train_step(model, cfg, freeze_bn=freeze,
-                                                  mesh=mesh)
-        for (idx, inv_m, joints), lr in zip(spec["plans"], spec["lrs"]):
-            metrics.append(step(state, store, local(idx), local(inv_m),
-                                local(joints).to(dtype), lr))
-    torch.save({"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
-                # bytes each metric keeps alive (one element, not a view of
-                # the all-reduced gradient buffer)
-                "metric_bytes": [max(v.untyped_storage().nbytes() for v in m.values())
-                                 for m in metrics],
-                "payload": train_lib.state_payload(state, cfg.train)},
-               os.path.join(out_dir, f"rank{rank}.pt"))
-    torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
+        k = spec.get("k", 1)
+        if k == 1:
+            step = train_lib.make_resident_train_step(model, cfg, freeze_bn=freeze,
+                                                      mesh=mesh)
+            for (idx, inv_m, joints), lr in zip(spec["plans"], spec["lrs"]):
+                metrics.append(step(state, store, local(idx), local(inv_m),
+                                    local(joints).to(dtype), lr))
+        else:
+            # k steps a dispatch (train_graph.MultiStep; eager under gloo)
+            step = train_lib.make_multi_resident_train_step(
+                model, cfg, freeze_bn=freeze, mesh=mesh)
+            for lo in range(0, len(spec["plans"]), k):
+                plans = spec["plans"][lo:lo + k]
+                idx, inv_m, joints = (torch.stack([local(p[i]) for p in plans])
+                                      for i in range(3))
+                m = step(state, store, idx, inv_m, joints.to(dtype),
+                         torch.tensor(spec["lrs"][lo:lo + k], dtype=dtype))
+                metrics += [{key: v[i] for key, v in m.items()}
+                            for i in range(len(plans))]
+    out = {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+           # bytes each metric keeps alive (one element, not a view of
+           # the all-reduced gradient buffer)
+           "metric_bytes": [max(v.untyped_storage().nbytes() for v in m.values())
+                            for m in metrics],
+           "payload": train_lib.state_payload(state, cfg.train)}
+    if spec.get("graph_probe"):
+        # a stand-in for the GraphedStep a card captures (the CPU has none),
+        # still referenced here as a caller might: the group may be
+        # destroyed only once its graph has been reset
+        class CapturedGraph:
+            live = True
+
+            def reset(self):
+                self.live = False
+
+        held = type("GraphedStep", (), {})()
+        held.graph = CapturedGraph()
+        step.graphed = held
+        destroy = torch.distributed.destroy_process_group
+
+        def checked_destroy(*a, **kw):
+            out["graph_alive_at_destroy"] = held.graph.live
+            return destroy(*a, **kw)
+
+        torch.distributed.destroy_process_group = checked_destroy
+    mesh_lib.shutdown(mesh, step)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 if __name__ == "__main__":

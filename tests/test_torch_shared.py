@@ -2,7 +2,7 @@
 (``configs``, ``ops.group``, ``ops.group_cpp`` with ``csrc/grouping.cpp``,
 ``data.heatmaps``, ``data.synthetic`` with the trainer's feeds,
 ``data.prefetch``, ``data.pipeline``, ``utils.common``, ``utils.oks_eval``,
-``infer.serving``). Each copy is held against its original on the same
+``utils.config_reader``, ``infer.serving``). Each copy is held against its original on the same
 numpy inputs, exactly; the compact feed's bf16 arrays are torch tensors in
 the port and ``ml_dtypes`` arrays in the JAX package, compared as fp32."""
 
@@ -20,13 +20,14 @@ from improved_body_parts_tpu.infer import serving as jserving
 from improved_body_parts_tpu.ops import group as jgroup
 from improved_body_parts_tpu.ops import group_cpp as jgroup_cpp
 from improved_body_parts_tpu.utils import common as jcommon
+from improved_body_parts_tpu.utils import config_reader as jconfig_reader
 from improved_body_parts_tpu.utils import oks_eval as joks_eval
 from improved_body_parts_tpu_torch import configs
 from improved_body_parts_tpu_torch.apps.evaluate import synthetic_coco
 from improved_body_parts_tpu_torch.data import heatmaps, pipeline, prefetch, synthetic
 from improved_body_parts_tpu_torch.infer import serving
 from improved_body_parts_tpu_torch.ops import group, group_cpp
-from improved_body_parts_tpu_torch.utils import common, oks_eval
+from improved_body_parts_tpu_torch.utils import common, config_reader, oks_eval
 
 
 def _same(a, b) -> bool:
@@ -149,6 +150,52 @@ def test_synthetic_dataset_item_matches(idx):
     for a, b in zip(mine, ref):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+# a reference INI in the configobj dialect (inline comments, a nested model
+# section, comma lists), and one that sets only part of the fields
+INIS = {"full": """
+[param]
+modelID = 1
+scale_search = 0.5, 1, 1.5, 2  # comment
+thre1 = 0.2
+thre2 = 0.15
+connect_ration = 0.9
+mid_num = 10
+len_rate = 8
+connection_tole = 0.6
+remove_recon = 1
+offset_radius = 3
+
+[models]
+[[1]]
+boxsize = 384
+padValue = 127
+stride = 4
+max_downsample = 32
+""", "partial": """
+[param]
+modelID = 2
+thre1 = 0.05
+remove_recon = 0
+[models]
+[[1]]
+boxsize = 256
+[[2]]
+boxsize = 640
+padValue = 0
+"""}
+
+
+@pytest.mark.parametrize("ini", sorted(INIS))
+def test_config_reader_matches(tmp_path, ini):
+    path = tmp_path / "config"
+    path.write_text(INIS[ini])
+    assert config_reader.read_ini(str(path)) == jconfig_reader.read_ini(str(path))
+    mine = config_reader.apply_ini(configs.CanonicalConfig(), str(path))
+    ref = jconfig_reader.apply_ini(jconfigs.CanonicalConfig(), str(path))
+    assert dataclasses.asdict(mine.infer) == dataclasses.asdict(ref.infer)
+    assert mine.infer != configs.CanonicalConfig().infer
 
 
 # ---------------------------------------------------------------------------
