@@ -55,7 +55,12 @@ fused and int8 arms (each kernel's launches counted exactly),
 (dense K = 1, resident K = 4 on the graph), ``tools.export_quantized`` on
 an ``apps.train``-layout ``.pth`` served bit for bit from the file,
 ``tools.eval_curve`` over two epochs and ``tools.e2e_trained_smoke``'s
-scoring.
+scoring; last, the ``spatial`` mesh axis (phase 14): the full-width
+``Canonical`` train step at 512² with the image height sharded over two
+gloo ranks sharing the card (data 1 × spatial 2, halos exchanged around
+every conv), against one process on the same global batch of 2 (fp32
+frozen-BN parameters and losses, bf16 train-mode losses), with its ms a
+step, peak GiB a rank and halo exchanges a step.
 
     python3 chip_smoke.py
 
@@ -2401,6 +2406,24 @@ def measurement_entry_points(model, qmodel, config, device, smi) -> dict:
     torch.cuda.empty_cache()
     return line
 
+# ---------------------------------------------------------------------------
+# phase 14: the spatial mesh axis
+def spatial_axis(smi: str) -> dict:
+    """Phase 14: ``tools.multi_card.spatial`` on the one card: 2 gloo ranks
+    sharing it as data 1 × spatial 2 (each its band of the 512² images'
+    rows) against one process on the same global batch of 2, 2 fp32
+    frozen-BN steps (parameters within 1e-5 of their move, losses) and 2
+    bf16 train-mode steps (losses within 5%); ms a step, peak GiB a rank,
+    halo exchanges a step. Raises on any failure: nothing falls back to one
+    process."""
+    import gc
+
+    from improved_body_parts_tpu_torch.tools import multi_card
+    gc.collect()
+    torch.cuda.empty_cache()        # the card's memory for the two ranks
+    return multi_card.spatial(1, smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2623,6 +2646,12 @@ def main() -> int:
           "export_quantized, eval_curve, e2e_trained_smoke")
     measure_line = measurement_entry_points(model, qmodel, config, device, smi)
     print(json.dumps({"measurement": measure_line}), flush=True)
+
+    # -- 14: the spatial mesh axis ------------------------------------------------------
+    phase("14 spatial: Canonical 512², global batch 2, 2 gloo ranks on the card as "
+          "data 1 x spatial 2 (bands of rows, halo exchanges) against one process")
+    spatial_line = spatial_axis(smi)
+    print(json.dumps({"spatial": spatial_line}), flush=True)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@ rotation TTA, the demo and evaluate entry points), trains (loss, train-mode
 BatchNorm, the SGD step, GT rendered on the device, the device-resident
 feed with its augmentation on the card, K steps a dispatch replayed from a
 CUDA graph of the captured step, checkpoints, ``apps/train.py``), on one
-card or data parallel on several (``parallel/mesh.py``: one process a
-card, train-mode BatchNorm over the global batch, the resident store
-sharded over the ranks; mesh-sharded serving), quantizes to int8 after
+card or on several over the JAX package's data × spatial mesh
+(``parallel/mesh.py``: one process a card, train-mode BatchNorm over the
+global batch, the resident store sharded over the data axis; with a
+``spatial`` axis the image height sharded over cards, halos exchanged
+around every conv, ``parallel/spatial.py``; mesh-sharded serving),
+quantizes to int8 after
 training (fold, calibrate,
 int8 serving) and builds every model variant of the JAX package
 (``extra_attention``, ``cross_stack=False``, ``IndependentPoseNet``,
@@ -32,7 +35,8 @@ and ``int8_conv`` and their build), ``infer/`` (the ``Predictor`` and
 inference-speed entry points), ``data/`` (synthetic scenes, their ground-truth maps and the
 training feeds, the resident store among them), ``train_lib`` and
 ``train_graph`` (the train steps and their CUDA-graph dispatch),
-``parallel/`` (process groups, the mesh, the data-parallel collectives),
+``parallel/`` (process groups, the mesh, the data-parallel collectives,
+the spatial axis's halo exchanges),
 ``utils/`` (device, checkpoint, drawing, OKS evaluation, profiling and
 INI helpers), ``tools/`` (the int8 kernel's probe, the multi-process dry
 run, the measurement and evaluation tools) and

@@ -138,20 +138,28 @@ class DeviceHeatmapper:
 
     # ------------------------------------------------------------------
     def render(self, joints: torch.Tensor,
-               mask_all: torch.Tensor | None = None) -> torch.Tensor:
+               mask_all: torch.Tensor | None = None,
+               rows: tuple | None = None) -> torch.Tensor:
         """(B,P,18,3) joints (vis code 2/3 = absent; padded slots use 2) +
         optional (B,h,w) mask_all -> (B,h,w,50) float32 (float64 for float64
-        joints), == the host oracle for each batch element."""
+        joints), == the host oracle for each batch element. ``rows`` (lo,
+        hi) renders only those rows of the maps, (B, hi - lo, w, 50), equal
+        to the same rows of the whole render (a spatial mesh's band);
+        ``mask_all`` stays whole, for the erosion's edge rows."""
         dt = torch.promote_types(joints.dtype, torch.float32)
         joints = joints.to(dt)
         dev = joints.device
         B = joints.shape[0]
         gx, gy, ix, iy, limbs_from, limbs_to = self.constants(dev, dt)
+        lo, hi = rows or (0, self.h)
+        if rows is not None:
+            gy, iy = gy[lo:hi], iy[lo:hi]
         X, Y = gx, gy[:, None]                                  # (w,), (h, 1)
         n_limbs = len(self.limbs_from)
-        kp = torch.zeros((B, NUM_PARTS, self.h, self.w), dtype=dt, device=dev)
-        acc = torch.zeros((B, n_limbs, self.h, self.w), dtype=dt, device=dev)
-        cnt = torch.zeros((B, n_limbs, self.h, self.w), dtype=dt, device=dev)
+        h = hi - lo
+        kp = torch.zeros((B, NUM_PARTS, h, self.w), dtype=dt, device=dev)
+        acc = torch.zeros((B, n_limbs, h, self.w), dtype=dt, device=dev)
+        cnt = torch.zeros((B, n_limbs, h, self.w), dtype=dt, device=dev)
         for p in range(joints.shape[1]):
             pts, vis = joints[:, p, :, :2], joints[:, p, :, 2] < 2
             kp = torch.maximum(kp, self._person_kp(pts, vis, gx, gy, ix, iy))
@@ -162,9 +170,9 @@ class DeviceHeatmapper:
 
         limbs = torch.where(cnt > 0, acc / torch.clamp(cnt, min=1.0), 0.0)
         if mask_all is None:
-            bkg = torch.zeros((B, self.h, self.w), dtype=dt, device=dev)
+            bkg = torch.zeros((B, h, self.w), dtype=dt, device=dev)
         else:
-            bkg = erode3_device(mask_all.to(dt))
+            bkg = erode3_device(mask_all.to(dt))[:, lo:hi]
         hm = torch.cat([limbs, kp, bkg[:, None], kp.amax(dim=1, keepdim=True)],
                        dim=1)
         assert hm.shape[1] == BKG_START + 2 and HEAT_START == limbs.shape[1]

@@ -21,12 +21,21 @@ re-design of the reference loss (models/loss_model.py:23-161):
 
 Everything is fp32: predictions and the mask are cast before the loss (a
 float64 model's loss stays float64).
+
+On a spatial mesh (``rows``, ``parallel/spatial.py``) the ground truth and
+the mask are this rank's band of the rows and the loss is this band's
+share: a split scale pools its band of the ground truth (the band's rows
+align with every pooling window) and cuts its band of the mask resized
+whole (the antialiased resize reads past a window, so the mask is gathered
+first); a gathered scale takes the whole ground truth and counts 1/S on
+each rank. The shares of a spatial group sum to the loss of its data
+slice.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +43,7 @@ import torch.nn.functional as F
 from improved_body_parts_tpu_torch.configs import (
     BKG_START, HEAT_START, NUM_LAYERS, TrainConfig,
 )
+from improved_body_parts_tpu_torch.parallel.spatial import RowShard, split_at
 from improved_body_parts_tpu_torch.utils.device import constant
 
 
@@ -119,13 +129,16 @@ def multi_task_loss(preds: Sequence[Sequence[torch.Tensor]],
                     gt_heatmaps: torch.Tensor,
                     mask_miss: torch.Tensor,
                     cfg: TrainConfig = TrainConfig(),
-                    use_focal: bool = True) -> torch.Tensor:
+                    use_focal: bool = True,
+                    rows: Optional[RowShard] = None) -> torch.Tensor:
     """Total training loss.
 
     preds:       [nstack][num_scales] NHWC (N, 128/2^s, 128/2^s, 50) outputs.
     gt_heatmaps: (N, 128, 128, 50) ground truth at stride 4.
     mask_miss:   (N, 128, 128, 1) unannotated-region mask.
-    Returns a scalar. reference: loss_model.py:23-40.
+    Returns a scalar. reference: loss_model.py:23-40. With ``rows`` every
+    input is this rank's band (a gathered scale's predictions whole) and
+    the result this band's share (module docstring).
     """
     nstack = len(preds)
     num_scales = len(preds[0])
@@ -140,18 +153,35 @@ def multi_task_loss(preds: Sequence[Sequence[torch.Tensor]],
     gt_heatmaps = gt_heatmaps.to(dt)
     mask_miss = mask_miss.to(dt)
     batch = gt_heatmaps.shape[0]
+    h0 = gt_heatmaps.shape[1]
+    if rows is not None:
+        with torch.no_grad():
+            mask_miss = rows.gather(mask_miss, dim=1)
+            gt_whole = (rows.gather(gt_heatmaps, dim=1)
+                        if not all(split_at(h0, s) for s in range(num_scales))
+                        else None)
 
     total = 0
     for s in range(num_scales):
         stack_preds = torch.stack([preds[t][s].to(dt) for t in range(nstack)])
         h, w = stack_preds.shape[2], stack_preds.shape[3]
-        gt = avg_pool_to(gt_heatmaps, h, w)
-        mask = resize_bilinear(mask_miss, h, w)
+        share = 1.0
+        if rows is None:
+            gt = avg_pool_to(gt_heatmaps, h, w)
+            mask = resize_bilinear(mask_miss, h, w)
+        elif split_at(h0, s):
+            gt = avg_pool_to(gt_heatmaps, h, w)
+            mask = rows.own(resize_bilinear(mask_miss, h * rows.size, w), dim=1)
+        else:
+            gt = avg_pool_to(gt_whole, h, w)
+            mask = resize_bilinear(mask_miss, h, w)
+            share = 1.0 / rows.size
         mask = torch.where(mask < 0.5, 0.0, mask)       # loss_model.py:56
         mask = mask * ch_w                               # broadcast (N,h,w,50)
         if use_focal:
             per_stack = focal_l2(stack_preds, gt, mask, cfg.focal_gamma)
         else:
             per_stack = plain_l2(stack_preds, gt, mask)
-        total = total + torch.sum(per_stack * nw) / torch.sum(nw) * sw[s]
+        term = torch.sum(per_stack * nw) / torch.sum(nw) * sw[s]
+        total = total + (term if share == 1.0 else term * share)
     return total / torch.sum(sw) / batch

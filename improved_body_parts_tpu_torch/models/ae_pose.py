@@ -21,7 +21,7 @@ from torch import nn
 
 from improved_body_parts_tpu_torch.configs import ModelConfig
 from improved_body_parts_tpu_torch.models.imhn import (
-    BNStats, Conv, Residual, _PoseNetBase, max_pool2, upsample_nearest2,
+    BNStats, Conv, Residual, Rows, _PoseNetBase, _pool_rows, _up_rows, max_pool2,
 )
 
 
@@ -41,16 +41,17 @@ class AEHourglass(nn.Module):
                 self.add_module(f"d{d}_inner", Residual(cn, cn, device=device))
             self.add_module(f"d{d}_low2", Residual(cn, c, device=device))
 
-    def _level(self, d: int, x, bn_stats: BNStats):
+    def _level(self, d: int, x, bn_stats: BNStats, rows: Rows):
         mod = lambda name: getattr(self, f"d{d}_{name}")
-        up1 = mod("up1")(x, bn_stats)
-        low = mod("low1")(max_pool2(x), bn_stats)
-        low2 = (mod("inner")(low, bn_stats) if d == self.depth - 1
-                else self._level(d + 1, low, bn_stats))
-        return up1 + upsample_nearest2(mod("low2")(low2, bn_stats))
+        up1 = mod("up1")(x, bn_stats, rows)
+        pooled, inner = _pool_rows(x, rows)
+        low = mod("low1")(pooled, bn_stats, inner)
+        low2 = (mod("inner")(low, bn_stats, inner) if d == self.depth - 1
+                else self._level(d + 1, low, bn_stats, inner))
+        return up1 + _up_rows(mod("low2")(low2, bn_stats, inner), rows, inner)
 
-    def forward(self, x, bn_stats: BNStats = None):
-        return self._level(0, x, bn_stats)
+    def forward(self, x, bn_stats: BNStats = None, rows: Rows = None):
+        return self._level(0, x, bn_stats, rows)
 
 
 class AEPoseNet(_PoseNetBase):
@@ -82,20 +83,20 @@ class AEPoseNet(_PoseNetBase):
                 self.add_module(f"merge_feat{t}", Conv(inp, inp, 1, **head))
         self._init(device, generator)
 
-    def _run(self, imgs: torch.Tensor, full: bool,
-             bn_stats: BNStats = None) -> List[List[torch.Tensor]]:
+    def _run(self, imgs: torch.Tensor, full: bool, bn_stats: BNStats = None,
+             rows: Rows = None) -> List[List[torch.Tensor]]:
         cfg = self.cfg
         x = imgs.permute(0, 3, 1, 2).to(self.compute_dtype)
-        x = self.pre1(self.pre0(x, bn_stats), bn_stats)
-        x = self.pre3(self.pre2(max_pool2(x), bn_stats), bn_stats)
+        x = self.pre1(self.pre0(x, bn_stats, rows), bn_stats, rows)
+        x = self.pre3(self.pre2(max_pool2(x), bn_stats, rows), bn_stats, rows)
         preds: List[List[torch.Tensor]] = []
         for t in range(cfg.nstack):
-            f = getattr(self, f"hg{t}")(x, bn_stats)
-            f = getattr(self, f"refine{t}_0")(f, bn_stats)
-            f = getattr(self, f"refine{t}_1")(f, bn_stats)
-            pred = getattr(self, f"out{t}")(f, bn_stats)
+            f = getattr(self, f"hg{t}")(x, bn_stats, rows)
+            f = getattr(self, f"refine{t}_0")(f, bn_stats, rows)
+            f = getattr(self, f"refine{t}_1")(f, bn_stats, rows)
+            pred = getattr(self, f"out{t}")(f, bn_stats, rows)
             preds.append([pred])
             if t < cfg.nstack - 1:
-                x = (x + getattr(self, f"merge_pred{t}")(pred, bn_stats)
-                     + getattr(self, f"merge_feat{t}")(f, bn_stats))
+                x = (x + getattr(self, f"merge_pred{t}")(pred, bn_stats, rows)
+                     + getattr(self, f"merge_feat{t}")(f, bn_stats, rows))
         return self._outputs(preds)

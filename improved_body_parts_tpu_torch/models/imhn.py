@@ -53,7 +53,9 @@ from torch.utils.checkpoint import checkpoint
 
 from improved_body_parts_tpu_torch.configs import ModelConfig
 from improved_body_parts_tpu_torch.ops import kernels
+from improved_body_parts_tpu_torch.parallel import spatial
 from improved_body_parts_tpu_torch.parallel.mesh import global_var_mean
+from improved_body_parts_tpu_torch.parallel.spatial import RowShard, scale_rows
 
 LEAKY_SLOPE = 0.01
 BN_EPS = 1e-5
@@ -67,6 +69,9 @@ DENSE_INIT_STD = 0.01
 # ``quant="calib"`` model, which has no BatchNorm, records {QConv2d: input
 # abs-max} in the same dict.
 BNStats = Optional[Dict[nn.Module, object]]
+# the spatial context (``parallel/spatial.RowShard``): None, or this rank's
+# band of the rows on a spatial mesh (replicated: a gathered level)
+Rows = Optional[RowShard]
 QUANT_MODES = (None, "calib", "int8")
 
 
@@ -151,17 +156,22 @@ def make_bn(c: int, quant: Optional[str] = None, device=None) -> nn.Module:
 
 
 def conv_bn(conv: nn.Module, bn: Optional[nn.Module], x: torch.Tensor,
-            relu: bool, bn_stats: BNStats = None) -> torch.Tensor:
+            relu: bool, bn_stats: BNStats = None, rows: Rows = None) -> torch.Tensor:
     """conv in ``x.dtype`` -> [BN in ``wide(x.dtype)``, cast back] -> [LeakyReLU].
     With ``bn_stats`` (train mode) BN uses the batch's statistics and
     records them there; without, the running statistics. A ``QConv2d``
-    (no BN) runs the whole block."""
+    (no BN) runs the whole block. With ``rows`` the conv runs on this
+    rank's band (``parallel/spatial.conv2d``: halo'd rows) and train-mode
+    statistics are the global batch's whole images (a gathered level's over
+    the data group alone, so it counts once)."""
     if isinstance(conv, QConv2d):
+        if rows is not None:
+            raise ValueError("quantized convs do not run on bands of rows")
         return conv(x, relu, bn_stats)
     dt = x.dtype
     bias = None if conv.bias is None else conv.bias.to(dt)
-    y = F.conv2d(x, conv.weight.to(dt), bias, conv.stride, conv.padding,
-                 conv.dilation)
+    y = spatial.conv2d(x, conv.weight.to(dt), bias, conv.stride, conv.padding,
+                       conv.dilation, rows)
     if bn is not None:
         y32 = y.to(wide(dt))
         if bn_stats is None:
@@ -171,6 +181,8 @@ def conv_bn(conv: nn.Module, bn: Optional[nn.Module], x: torch.Tensor,
             # digits when |mean| >> std); biased, as Flax records it; over
             # the global batch in a data-parallel step (BatchStats)
             group = getattr(bn_stats, "group", None)
+            if rows is not None and rows.replicated:
+                group = rows.data_group
             if group is None:
                 var, mean = torch.var_mean(y32, dim=(0, 2, 3), correction=0)
             else:
@@ -196,8 +208,9 @@ class Conv(nn.Module):
         self.bn = make_bn(outs, quant, device) if bn else None
         self.relu = nn.LeakyReLU(LEAKY_SLOPE) if relu else None
 
-    def forward(self, x, bn_stats: BNStats = None):
-        return conv_bn(self.conv, self.bn, x, self.relu is not None, bn_stats)
+    def forward(self, x, bn_stats: BNStats = None, rows: Rows = None):
+        return conv_bn(self.conv, self.bn, x, self.relu is not None, bn_stats,
+                       rows)
 
 
 class Residual(nn.Module):
@@ -234,7 +247,7 @@ class Residual(nn.Module):
         io = [self.convBlock[i].int8_io for i in (0, 3, 6)]
         return (fused and io[0] and io[1], fused and io[1] and io[2])
 
-    def forward(self, x, bn_stats: BNStats = None):
+    def forward(self, x, bn_stats: BNStats = None, rows: Rows = None):
         cb = self.convBlock
         if self.int8_links is not None:
             fuse0, fuse1 = self.int8_links
@@ -244,11 +257,12 @@ class Residual(nn.Module):
                       out_dtype=dt if fuse0 else None)
             h = cb[6](h, False, out_dtype=dt if fuse1 else None)
         else:
-            h = conv_bn(cb[0], cb[1], x, True, bn_stats)
-            h = conv_bn(cb[3], cb[4], h, True, bn_stats)
-            h = conv_bn(cb[6], cb[7], h, False, bn_stats)
+            h = conv_bn(cb[0], cb[1], x, True, bn_stats, rows)
+            h = conv_bn(cb[3], cb[4], h, True, bn_stats, rows)
+            h = conv_bn(cb[6], cb[7], h, False, bn_stats, rows)
         if self.skipConv is not None:
-            x = conv_bn(self.skipConv[0], self.skipConv[1], x, False, bn_stats)
+            x = conv_bn(self.skipConv[0], self.skipConv[1], x, False, bn_stats,
+                        rows)
         return F.leaky_relu(h + x, LEAKY_SLOPE)
 
 
@@ -262,10 +276,14 @@ class SELayer(nn.Module):
             nn.LeakyReLU(LEAKY_SLOPE),
             nn.Linear(c // reduction, c, device=device), nn.Sigmoid())
 
-    def forward(self, x):
+    def forward(self, x, rows: Rows = None):
         dt = x.dtype
         fc1, fc2 = self.fc[0], self.fc[2]
-        y = x.to(wide(dt)).mean(dim=(2, 3)).to(dt)     # global pool in fp32
+        if rows is None or rows.replicated:
+            y = x.to(wide(dt)).mean(dim=(2, 3)).to(dt)     # global pool in fp32
+        else:   # the bands' sums over the spatial group, over the whole image
+            y = (rows.sum(x.to(wide(dt)).sum(dim=(2, 3)))
+                 / (x.shape[2] * rows.size * x.shape[3])).to(dt)
         y = F.leaky_relu(F.linear(y, fc1.weight.to(dt), fc1.bias.to(dt)),
                          LEAKY_SLOPE)
         y = torch.sigmoid(F.linear(y, fc2.weight.to(dt), fc2.bias.to(dt)))
@@ -278,6 +296,23 @@ def max_pool2(x):
 
 def upsample_nearest2(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def _pool_rows(x, rows: Rows):
+    """An hourglass level's way down: (``max_pool2(x)``, the next level's
+    context). A band with an odd number of rows cannot be halved locally:
+    it is gathered first, and the levels below run replicated
+    (``parallel/spatial.split_at``)."""
+    if rows is not None and not rows.replicated and x.shape[2] % 2:
+        return max_pool2(rows.gather(x)), rows.full
+    return max_pool2(x), rows
+
+
+def _up_rows(x, rows: Rows, inner: Rows):
+    """The way back up: ``upsample_nearest2(x)``, cut to this rank's band
+    where the level below ran replicated."""
+    up = upsample_nearest2(x)
+    return rows.own(up) if inner is not rows else up
 
 
 class Backbone(nn.Module):
@@ -296,12 +331,12 @@ class Backbone(nn.Module):
             Conv(h, h, 3, dilation=d, device=device, quant=quant)
             for d in (3, 3, 4, 4, 5, 5)])
 
-    def forward(self, x, bn_stats: BNStats = None):
-        x = conv_bn(self.conv1, self.bn1, x, True, bn_stats)
-        x = self.res2(max_pool2(self.res1(x, bn_stats)), bn_stats)
+    def forward(self, x, bn_stats: BNStats = None, rows: Rows = None):
+        x = conv_bn(self.conv1, self.bn1, x, True, bn_stats, rows)
+        x = self.res2(max_pool2(self.res1(x, bn_stats, rows)), bn_stats, rows)
         h = x
         for conv in self.dilation:
-            h = conv(h, bn_stats)
+            h = conv(h, bn_stats, rows)
         return torch.cat([x, h], dim=1)
 
 
@@ -326,19 +361,21 @@ class Hourglass(nn.Module):
             levels.append(nn.ModuleList(mods))
         self.hg = nn.ModuleList(levels)
 
-    def _level(self, d: int, x, downs: List[torch.Tensor], bn_stats: BNStats):
+    def _level(self, d: int, x, downs: List[torch.Tensor], bn_stats: BNStats,
+               rows: Rows):
         mods = self.hg[d]
-        up1 = mods[0](x, bn_stats)
-        low = mods[1](max_pool2(x), bn_stats)
-        low2 = (mods[4](low, bn_stats) if d == self.depth - 1
-                else self._level(d + 1, low, downs, bn_stats))
+        up1 = mods[0](x, bn_stats, rows)
+        pooled, inner = _pool_rows(x, rows)
+        low = mods[1](pooled, bn_stats, inner)
+        low2 = (mods[4](low, bn_stats, inner) if d == self.depth - 1
+                else self._level(d + 1, low, downs, bn_stats, inner))
         downs.append(low2)                      # innermost appended first
-        low3 = mods[2](low2, bn_stats)
-        return up1 + mods[3](upsample_nearest2(low3), bn_stats)
+        low3 = mods[2](low2, bn_stats, inner)
+        return up1 + mods[3](_up_rows(low3, rows, inner), bn_stats, rows)
 
-    def forward(self, x, bn_stats: BNStats = None):
+    def forward(self, x, bn_stats: BNStats = None, rows: Rows = None):
         downs: List[torch.Tensor] = []
-        top = self._level(0, x, downs, bn_stats)
+        top = self._level(0, x, downs, bn_stats, rows)
         return [top] + downs[::-1]
 
 
@@ -365,14 +402,14 @@ class Merge(nn.Module):
         super().__init__()
         self.conv = Conv(x_dim, y_dim, 1, relu=False, device=device, quant=quant)
 
-    def forward(self, x, bn_stats: BNStats = None):
-        return self.conv(x, bn_stats)
+    def forward(self, x, bn_stats: BNStats = None, rows: Rows = None):
+        return self.conv(x, bn_stats, rows)
 
 
 class _PoseNetBase(nn.Module):
     """What every network of the port shares: the reference init, the
     BatchNorm-mode protocol of ``forward`` and the serving read-out.
-    Subclasses build ``_run(imgs, full, bn_stats)``."""
+    Subclasses build ``_run(imgs, full, bn_stats, rows)``."""
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -396,16 +433,24 @@ class _PoseNetBase(nn.Module):
                 for st in preds]
 
     def forward(self, imgs: torch.Tensor, train: bool = False,
-                bn_stats: BNStats = None) -> List[List[torch.Tensor]]:
+                bn_stats: BNStats = None, rows: Rows = None
+                ) -> List[List[torch.Tensor]]:
         """imgs (B, H, W, 3) in [0, 1] -> [nstack][num_scales] NHWC fp32.
         A ``bn_stats`` dict selects train mode and receives the batch
         statistics (the running statistics stay as they are); ``train=True``
         alone is train mode with the statistics dropped. Otherwise BN uses
         the running statistics. A ``quant="calib"`` model records its conv
-        blocks' input abs-max in ``bn_stats`` instead."""
+        blocks' input abs-max in ``bn_stats`` instead. ``rows``: ``imgs``
+        is this rank's band of the rows (a multiple of 4 of them) on a
+        spatial mesh; each output scale is then this rank's band of it, or
+        the whole scale where it is too short to split
+        (``parallel/spatial.split_at``)."""
         if train and bn_stats is None:
             bn_stats = {}
-        return self._run(imgs, full=True, bn_stats=bn_stats)
+        if rows is not None and imgs.shape[1] % 4:
+            raise ValueError(f"a band of {imgs.shape[1]} rows: the stem and "
+                             "the pool need a multiple of 4")
+        return self._run(imgs, full=True, bn_stats=bn_stats, rows=rows)
 
     def predict_maps(self, imgs: torch.Tensor) -> torch.Tensor:
         """The serving read-out ``forward(imgs)[-1][0]`` (B, H/4, W/4,
@@ -467,18 +512,20 @@ class PoseNet(_PoseNetBase):
                     Merge(cfg.oup_dim, inp + j * inc, **q) for j in range(S)]))
         self._init(device, generator)
 
-    def _run(self, imgs: torch.Tensor, full: bool,
-             bn_stats: BNStats = None) -> List[List[torch.Tensor]]:
+    def _run(self, imgs: torch.Tensor, full: bool, bn_stats: BNStats = None,
+             rows: Rows = None) -> List[List[torch.Tensor]]:
         cfg = self.cfg
         cross = cfg.cross_stack
-        x = self.pre(imgs.permute(0, 3, 1, 2).to(self.compute_dtype), bn_stats)
+        x = self.pre(imgs.permute(0, 3, 1, 2).to(self.compute_dtype), bn_stats,
+                     rows)
         preds: List[List[torch.Tensor]] = []
         caches: List[Optional[torch.Tensor]] = [None] * cfg.num_scales
         # remat: each hourglass is recomputed in the backward pass (the JAX
         # model's nn.remat over Hourglass); the recompute records the same
-        # batch statistics again under the same keys. The network draws no
-        # random numbers, so no RNG state is saved for the recompute (which
-        # a step captured in a CUDA graph could not read)
+        # batch statistics again under the same keys, and on a spatial mesh
+        # makes its exchanges again, in the same order on every rank. The
+        # network draws no random numbers, so no RNG state is saved for the
+        # recompute (which a step captured in a CUDA graph could not read)
         remat = cfg.remat and torch.is_grad_enabled()
         # without cross-stack merges no stack feeds the next, so the serving
         # read-out needs the last stack alone
@@ -486,27 +533,28 @@ class PoseNet(_PoseNetBase):
         for t in stacks:
             last = t == cfg.nstack - 1
             if remat:
-                hg = checkpoint(self.hourglass[t], x, bn_stats,
+                hg = checkpoint(self.hourglass[t], x, bn_stats, rows,
                                 use_reentrant=False, preserve_rng_state=False)
             else:
-                hg = self.hourglass[t](x, bn_stats)
+                hg = self.hourglass[t](x, bn_stats, rows)
             # the last stack's coarser scales feed nothing when only the
             # final scale-0 map is read
             scales = range(cfg.num_scales) if (full or not last) else (0,)
             stack = []
             for s in scales:
                 h = hg[s]
+                r = scale_rows(rows, hg[0].shape[2], s)
                 if self.chattn is not None:
-                    h = self.chattn[t][s](h)
+                    h = self.chattn[t][s](h, r)
                 if cross and t > 0:
                     h = h + caches[s]
                 trunk = self.features[t].before_regress[s]
-                feat = trunk[2](trunk[1](trunk[0](h, bn_stats), bn_stats))
-                pred = self.outs[t][s](feat, bn_stats)
+                feat = trunk[2](trunk[1](trunk[0](h, bn_stats, r), bn_stats, r), r)
+                pred = self.outs[t][s](feat, bn_stats, r)
                 stack.append(pred)
                 if cross and not last:
-                    cache = (self.merge_preds[t][s](pred, bn_stats)
-                             + self.merge_features[t][s](feat, bn_stats))
+                    cache = (self.merge_preds[t][s](pred, bn_stats, r)
+                             + self.merge_features[t][s](feat, bn_stats, r))
                     if s == 0:
                         x = x + cache
                     caches[s] = cache
@@ -532,18 +580,20 @@ class LegacyHourglass(nn.Module):
                 self.add_module(f"d{d}_inner", Conv(cn, cn, 3, device=device))
             self.add_module(f"d{d}_low2", Conv(cn, c, 3, device=device))
 
-    def _level(self, d: int, x, downs: List[torch.Tensor], bn_stats: BNStats):
+    def _level(self, d: int, x, downs: List[torch.Tensor], bn_stats: BNStats,
+               rows: Rows):
         mod = lambda name: getattr(self, f"d{d}_{name}")
-        up1 = mod("up1")(x, bn_stats)
-        low = mod("low1")(max_pool2(x), bn_stats)
-        low2 = (mod("inner")(low, bn_stats) if d == self.depth - 1
-                else self._level(d + 1, low, downs, bn_stats))
+        up1 = mod("up1")(x, bn_stats, rows)
+        pooled, inner = _pool_rows(x, rows)
+        low = mod("low1")(pooled, bn_stats, inner)
+        low2 = (mod("inner")(low, bn_stats, inner) if d == self.depth - 1
+                else self._level(d + 1, low, downs, bn_stats, inner))
         downs.append(low2)                      # innermost appended first
-        return up1 + upsample_nearest2(mod("low2")(low2, bn_stats))
+        return up1 + _up_rows(mod("low2")(low2, bn_stats, inner), rows, inner)
 
-    def forward(self, x, bn_stats: BNStats = None):
+    def forward(self, x, bn_stats: BNStats = None, rows: Rows = None):
         downs: List[torch.Tensor] = []
-        top = self._level(0, x, downs, bn_stats)
+        top = self._level(0, x, downs, bn_stats, rows)
         return [top] + downs[::-1]
 
 
@@ -584,27 +634,28 @@ class IndependentPoseNet(_PoseNetBase):
                                                        relu=False, device=device))
         self._init(device, generator)
 
-    def _run(self, imgs: torch.Tensor, full: bool,
-             bn_stats: BNStats = None) -> List[List[torch.Tensor]]:
+    def _run(self, imgs: torch.Tensor, full: bool, bn_stats: BNStats = None,
+             rows: Rows = None) -> List[List[torch.Tensor]]:
         cfg = self.cfg
         x = imgs.permute(0, 3, 1, 2).to(self.compute_dtype)
-        x = self.pre1(self.pre0(x, bn_stats), bn_stats)
-        x = self.pre3(self.pre2(max_pool2(x), bn_stats), bn_stats)
+        x = self.pre1(self.pre0(x, bn_stats, rows), bn_stats, rows)
+        x = self.pre3(self.pre2(max_pool2(x), bn_stats, rows), bn_stats, rows)
         preds: List[List[torch.Tensor]] = []
         for t in range(cfg.nstack):
             last = t == cfg.nstack - 1
-            hg = getattr(self, f"hg{t}")(x, bn_stats)
+            hg = getattr(self, f"hg{t}")(x, bn_stats, rows)
             # only scale 0 chains into the next stack: the serving read-out
             # needs no coarser scale's trunk or head
             stack = []
             for s in (range(cfg.num_scales) if full else (0,)):
-                f = getattr(self, f"feat{t}_s{s}a")(hg[s], bn_stats)
-                f = getattr(self, f"feat{t}_s{s}b")(f, bn_stats)
-                pred = getattr(self, f"out{t}_s{s}")(f, bn_stats)
+                r = scale_rows(rows, hg[0].shape[2], s)
+                f = getattr(self, f"feat{t}_s{s}a")(hg[s], bn_stats, r)
+                f = getattr(self, f"feat{t}_s{s}b")(f, bn_stats, r)
+                pred = getattr(self, f"out{t}_s{s}")(f, bn_stats, r)
                 stack.append(pred)
                 if s == 0 and not last:
-                    x = (x + getattr(self, f"merge_pred{t}")(pred, bn_stats)
-                         + getattr(self, f"merge_feat{t}")(f, bn_stats))
+                    x = (x + getattr(self, f"merge_pred{t}")(pred, bn_stats, r)
+                         + getattr(self, f"merge_feat{t}")(f, bn_stats, r))
             preds.append(stack)
         return self._outputs(preds)
 

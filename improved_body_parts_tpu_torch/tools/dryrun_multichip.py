@@ -1,22 +1,30 @@
-"""Multi-process dry run of the port's data-parallel features, on a tiny
+"""Multi-process dry run of the port's multi-GPU features, on a tiny
 model: the counterpart of the JAX package's ``__graft_entry__.
-dryrun_multichip``, less its ``spatial`` axis (ROADMAP A13b).
+dryrun_multichip``, on its data × spatial mesh.
 
-    python -m improved_body_parts_tpu_torch.tools.dryrun_multichip 2 --device cpu
+    python -m improved_body_parts_tpu_torch.tools.dryrun_multichip 4 --device cpu
     python -m improved_body_parts_tpu_torch.tools.dryrun_multichip 4
 
 starts N ranks (``torch.multiprocessing``, one process each): gloo on the
 CPU with ``--device cpu``, else NCCL over the first N visible cards (it
 refuses N larger than the card count rather than put two NCCL ranks on one
-card). Every rank runs, on the nstack-2 model of the tests at 64²:
+card). The mesh is the JAX dry run's: spatial 2 when N is even and at
+least 4, else 1, and data N / spatial (printed as ``mesh: data=D
+spatial=S``). Every rank runs, on the nstack-2 model of the tests at 64²,
+with a global batch of 2 a data slice:
 
-  * two remat'd train-mode steps over a global batch of 2 a rank;
+  * two remat'd train-mode steps with the images' rows sharded over the
+    spatial axis (``shard_batch(shard_spatial=True)``: each rank its band);
   * an SWA accumulate and swap, and a frozen-BN step on the average;
+  * the compact feed's step (ground truth rendered on the device, each
+    rank its band) with fp32 images, and from the same state with uint8
+    images: losses within 5% of each other;
   * a ``.pth`` of rank 0's state restored by every rank, which then takes
     one more step: its loss and parameters equal the unrestored state's;
-  * a resident step with the store sharded over the ranks
-    (``device_arrays(shard=)``, ``plan_batches(store_shards=N)``), then two
-    more in one K = 2 dispatch (a CUDA graph under NCCL);
+  * a resident step with the store sharded over the data axis
+    (``device_arrays(shard=(data_index, D))``, ``plan_batches(
+    store_shards=D)``), the batch replicated over the spatial axis, then
+    two more in one K = 2 dispatch (a CUDA graph under NCCL);
 
 after each, the parameters agree on every rank (checksums gathered). The
 group is then closed and rank 0 serves over a mesh of N devices (the N
@@ -135,8 +143,11 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     """One rank of the dry run (module docstring). Raises on any failure."""
     from improved_body_parts_tpu_torch import train_lib
     from improved_body_parts_tpu_torch.configs import NUM_LAYERS
+    from improved_body_parts_tpu_torch.data.heatmaps_device import pad_people
     from improved_body_parts_tpu_torch.data.resident import ResidentFeed, build_store
-    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+    from improved_body_parts_tpu_torch.data.synthetic import (
+        SyntheticDataset, random_people,
+    )
     from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
     from improved_body_parts_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -144,20 +155,24 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     torch.set_num_threads(1)
     device = mesh_lib.initialize_multihost(f"localhost:{port}", world, rank,
                                            device=device_kind, timeout_s=300)
-    mesh = mesh_lib.make_mesh()
-    _log(rank, t0, f"joined the group on {device}")
+    spatial = 2 if world % 2 == 0 and world >= 4 else 1
+    mesh = mesh_lib.make_mesh(spatial=spatial)
+    D = mesh.data_size
+    if rank == 0:
+        print(f"mesh: data={D} spatial={spatial}", flush=True)
+    _log(rank, t0, f"joined the group on {device}, mesh {mesh.shape}")
     config = _config()
     torch.backends.cudnn.deterministic = True   # restored == unrestored
     state = train_lib.create_train_state(_model(config, device), config.train)
-    B = PER_RANK * world
-    rng = np.random.RandomState(0)
-    sl = mesh_lib.process_batch_slice(B)
+    B = PER_RANK * D
+    rng = np.random.RandomState(0)      # every rank draws the global batch
 
     def batch():
+        """(imgs, mask, heat): this rank's data slice, its band of rows."""
         glob = (rng.rand(B, SIZE, SIZE, 3).astype(np.float32),
                 np.ones((B, SIZE // 4, SIZE // 4, 1), np.float32),
                 rng.rand(B, SIZE // 4, SIZE // 4, NUM_LAYERS).astype(np.float32))
-        return mesh_lib.assemble_global_batch(mesh, tuple(a[sl] for a in glob))
+        return mesh_lib.shard_batch(mesh, glob, shard_spatial=True)
 
     step = train_lib.make_train_step(state.model, config, mesh=mesh)
     losses = [float(step(state, *batch(), LR)["loss"]) for _ in range(2)]
@@ -173,6 +188,28 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     assert np.isfinite(swa_loss) and int(state.swa_count) == 1
     _agree((swa_loss, _checksum(state)), "SWA swap and frozen-BN step")
     _log(rank, t0, "SWA swap and frozen-BN step agree")
+
+    # the compact feed: the ground truth rendered in the step, each rank its
+    # band; then the uint8 wire from the same state: the losses differ by
+    # the <= 1/510 quantization of the images only
+    compact = train_lib.make_train_step(state.model, config, compact_gt=True,
+                                        mesh=mesh)
+    imgs, mask, _ = batch()
+    gt = mesh_lib.shard_batch(mesh, (
+        np.stack([pad_people(random_people(rng, SIZE, SIZE), 4) for _ in range(B)]),
+        np.ones((B, SIZE // 4, SIZE // 4), np.float32)))
+    pre_compact = train_lib.state_payload(state, config.train)
+    c_loss = float(compact(state, imgs, mask, gt, LR)["loss"])
+    u8_state = train_lib.create_train_state(_model(config, device), config.train)
+    train_lib.load_payload(u8_state, pre_compact)
+    u8 = torch.clamp(torch.round(imgs * 255.0), 0, 255).to(torch.uint8)
+    u8_loss = float(train_lib.make_train_step(u8_state.model, config,
+                                              compact_gt=True, mesh=mesh)(
+        u8_state, u8, mask, gt, LR)["loss"])
+    assert np.isfinite(c_loss) and abs(u8_loss - c_loss) < 0.05 * max(1.0, abs(c_loss))
+    _agree((c_loss, u8_loss, _checksum(state)), "compact fp32 and uint8 steps")
+    _log(rank, t0, "compact fp32 and uint8 steps agree")
+    del u8_state
 
     # .pth round trip: rank 0 writes, every rank restores and steps on
     if rank == 0:
@@ -190,20 +227,21 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
     _agree(_checksum(restored), "restored state after a step")
     _log(rank, t0, "restored state agrees")
 
-    # the resident feed with the store sharded over the ranks
-    ds = SyntheticDataset(config, length=4 * world, image_size=SIZE)
+    # the resident feed with the store sharded over the data axis; the
+    # ranks of a spatial group take the same slice whole
+    ds = SyntheticDataset(config, length=4 * D, image_size=SIZE)
     store_h = build_store(ds)
-    store = store_h.device_arrays(device, shard=(rank, world))
+    di = mesh.data_index
+    store = store_h.device_arrays(device, shard=(di, D))
     feed = ResidentFeed(store_h, config, augment=True)
     res_step = train_lib.make_resident_train_step(state.model, config, mesh=mesh)
-    (plan,) = feed.plan_batches(B, 1, seed=2, rank=rank, world=world,
-                                store_shards=world)
+    (plan,) = feed.plan_batches(B, 1, seed=2, rank=di, world=D, store_shards=D)
     plan = mesh_lib.assemble_global_batch(mesh, plan)
     res_loss = float(res_step(state, store, *plan, LR)["loss"])
     multi = train_lib.make_multi_resident_train_step(state.model, config,
                                                      mesh=mesh)
-    plans = list(feed.plan_batches(B, 2, seed=3, rank=rank, world=world,
-                                   store_shards=world))
+    plans = list(feed.plan_batches(B, 2, seed=3, rank=di, world=D,
+                                   store_shards=D))
     chunk = tuple(torch.from_numpy(np.stack([p[i] for p in plans]))
                   for i in range(3))
     m_k = multi(state, store, *chunk, torch.full((2,), LR))
@@ -222,8 +260,9 @@ def rank_main(rank: int, world: int, port: int, device_kind: str,
         # cards rank 0 now serves on
         serving = _serve(config, state, world, device_kind, device,
                          lambda what: _log(rank, t0, what))
-        print(f"dryrun_multichip({world}, {backend}) OK: losses {losses} "
-              f"swa {swa_loss:.4f} restored {float(m_b['loss']):.4f} "
+        print(f"dryrun_multichip({world}, {backend}) OK: mesh data={D} "
+              f"spatial={spatial}; losses {losses} swa {swa_loss:.4f} compact "
+              f"{c_loss:.4f} uint8 {u8_loss:.4f} restored {float(m_b['loss']):.4f} "
               f"resident (sharded store) {res_loss:.4f} K=2 ({route}) "
               f"{k_losses}; {serving}", flush=True)
 

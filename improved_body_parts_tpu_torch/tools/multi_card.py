@@ -1,9 +1,9 @@
 """Data-parallel training and sharded serving across the visible cards,
 each held against one process on one card, at ``Canonical`` width.
 
-    python -m improved_body_parts_tpu_torch.tools.multi_card [agreement scaling dryrun serving]
+    python -m improved_body_parts_tpu_torch.tools.multi_card [agreement scaling spatial dryrun serving]
 
-With N cards visible it runs (all four parts unless some are named):
+With N cards visible it runs (all five parts unless some are named):
 
   * scaling (N > 1): the resident step at K = 4 on the CUDA graph, 8
     samples a card, on N ranks against 1 (ms a step between CUDA events,
@@ -13,7 +13,16 @@ With N cards visible it runs (all four parts unless some are named):
     train-mode steps and 4 fp32 frozen-BN steps from the reference init,
     against one process taking the global batch on one card with the same
     plans (the loss of each step; the fp32 parameters after the last);
-  * the dry run (``tools/dryrun_multichip.py``) over the N cards;
+  * spatial (N even): the image height sharded over cards, N NCCL ranks
+    as data N/2 × spatial 2 (``make_mesh(spatial=2)``: each rank its band
+    of the rows, halos exchanged around every conv) against N ranks as
+    data N, the same global batch (2 a card) of the compact-u8 feed at
+    512²: 2 fp32 frozen-BN steps (the parameters' agreement) and 2 bf16
+    train-mode steps (losses), ms a step (eager), peak GiB a rank and the
+    halo exchanges a step. With one card: 2 gloo ranks sharing it as data
+    1 × spatial 2 against one process (``chip_smoke.py`` phase 14);
+  * the dry run (``tools/dryrun_multichip.py``) over the N cards (data ×
+    spatial for an even N of 4 or more);
   * serving: ``PipelinedServer(mesh=make_mesh())`` over the N cards (8
     frames a card a batch) against one card (batch 8), and the mesh's fp32
     packed buffers against the unsharded predictor on each card's frames.
@@ -47,6 +56,8 @@ RECORDS = 64           # the resident store of chip_smoke.py phase 11
 STEPS = 4              # the steps compared across processes
 K = 4                  # steps a dispatch on the graph
 FROZEN_TOL = 1e-5      # fp32 frozen BN, N ranks vs one process: of the move
+SPATIAL_STEPS = 2      # the spatial steps compared, each BN mode
+BF16_LOSS_TOL = 0.05   # bf16 train mode, bands vs whole images: relative
 
 
 def _kill_tree(proc) -> None:
@@ -197,9 +208,117 @@ def rank_main(rank: int, world: int, port: int, tmp: str, spec: dict) -> None:
     torch.distributed.destroy_process_group()
 
 
+def spatial_batches(config, global_batch: int, steps: int) -> list:
+    """Global batches of the compact-u8 feed (``SyntheticDataset.
+    get_compact``, deterministic by index): (imgs uint8, mask, joints,
+    mask_all) numpy, float32 but the images."""
+    from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset
+    ds = SyntheticDataset(config, length=global_batch * steps, seed=SEED,
+                          image_size=config.height)
+    out = []
+    for k in range(steps):
+        samples = [ds.get_compact(k * global_batch + i, image_u8=True)
+                   for i in range(global_batch)]
+        out.append((torch.stack([x[0] for x in samples]).numpy(),
+                    torch.stack([x[1] for x in samples]).float().numpy(),
+                    torch.stack([x[2][0] for x in samples]).numpy(),
+                    torch.stack([x[2][1] for x in samples]).float().numpy()))
+    return out
+
+
+def spatial_steps(model, config, batches, frozen: bool, mesh=None) -> dict:
+    """Compact-u8 steps from a fresh state of ``model``, one a batch, on
+    this process's share of each global batch (its data slice of a mesh,
+    and its band of the rows with a spatial axis; all of it without a
+    mesh). Returns the losses, ms a step after the first (CUDA events),
+    the halo exchanges a step, the peak allocated GiB and the state."""
+    from improved_body_parts_tpu_torch import train_lib
+    from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
+    from improved_body_parts_tpu_torch.parallel import spatial as sp
+    dev = next(model.parameters()).device
+    staged = []
+    for imgs, mask, joints, mask_all in batches:
+        if mesh is None:
+            imgs, mask, joints, mask_all = (torch.from_numpy(a).to(dev) for a in
+                                            (imgs, mask, joints, mask_all))
+        else:
+            imgs, mask = mesh_lib.shard_batch(mesh, (imgs, mask),
+                                              shard_spatial=mesh.spatial > 1)
+            joints, mask_all = mesh_lib.shard_batch(mesh, (joints, mask_all))
+        staged.append((imgs, mask, (joints, mask_all)))
+    state = train_lib.create_train_state(model, config.train)
+    step = train_lib.make_train_step(model, config, freeze_bn=frozen,
+                                     compact_gt=True, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses = []
+    for k, b in enumerate(staged):
+        if k == 1:
+            torch.cuda.synchronize(dev)
+            sp.reset_counts()
+            start.record()
+        losses.append(step(state, *b, config.train.learning_rate)["loss"])
+    end.record()
+    end.synchronize()
+    n = len(staged) - 1
+    return dict(losses=torch.stack(losses).float().cpu(),
+                ms=start.elapsed_time(end) / n, halos=sp.counts["halo"] / n,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                state=state)
+
+
+def spatial_modes(init, config, batches, mesh=None) -> dict:
+    """SPATIAL_STEPS fp32 frozen-BN and bf16 train-mode steps
+    (``spatial_steps``) from copies of ``init``: {mode: their results}, and
+    ``params``: the fp32 parameters after the frozen steps, on the CPU."""
+    out = {}
+    for mode in ("fp32_frozen", "bf16_train"):
+        model = copy.deepcopy(init)
+        frozen = mode == "fp32_frozen"
+        # deterministic cuDNN where the bands are compared bit-close
+        torch.backends.cudnn.deterministic = frozen
+        if frozen:
+            model.compute_dtype = torch.float32
+        res = spatial_steps(model, config, batches, frozen, mesh)
+        state = res.pop("state")
+        if frozen:
+            out["params"] = {k: v.detach().cpu() for k, v in
+                             state.model.named_parameters()}
+        out[mode] = res
+        del model, state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def spatial_rank_main(rank: int, world: int, port: int, tmp: str,
+                      spec: dict) -> None:
+    """One rank of the spatial part: joins the group, lays the mesh out
+    with ``spec["spatial"]``, takes SPATIAL_STEPS fp32 frozen-BN and bf16
+    train-mode steps of the compact-u8 feed and writes ``rank<r>.pt``
+    (rank 0 also the fp32 parameters)."""
+    from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh_lib.initialize_multihost(
+        f"localhost:{port}", world, rank,
+        device="cuda:0" if spec["share_card"] else "cuda",
+        backend=spec["backend"], timeout_s=600)
+    mesh = mesh_lib.make_mesh(spatial=spec["spatial"])
+    config, init = setup(device)
+    out = spatial_modes(init, config, spatial_batches(
+        config, spec["global_batch"], SPATIAL_STEPS), mesh)
+    params = out.pop("params")
+    if rank == 0:
+        torch.save(params, os.path.join(tmp, "params.pt"))
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    mesh_lib.shutdown(mesh)
+
+
 def _entry(rank, world, port, tmp, spec):
     try:
-        rank_main(rank, world, port, tmp, spec)
+        (spatial_rank_main if "spatial" in spec else rank_main)(
+            rank, world, port, tmp, spec)
     except BaseException:
         traceback.print_exc()
         sys.stdout.flush()
@@ -278,11 +397,8 @@ def agreement(world: int, batch: int, share_card: bool, device, smi: str) -> dic
                           rel_diff=rel, ranks_ms=outs[0][mode]["ms"],
                           one_process_ms=ms)
         if frozen:
-            start = dict(init.named_parameters())
-            move = max(float((p.detach().cpu() - start[k].detach().cpu()).abs().max())
-                       for k, p in state.model.named_parameters())
-            diff = max(float((outs[0]["params"][k] - p.detach().cpu()).abs().max())
-                       for k, p in state.model.named_parameters())
+            diff, move = _max_diff_and_move(outs[0]["params"], {
+                k: p.detach().cpu() for k, p in state.model.named_parameters()}, init)
             print(f"fp32 frozen BN after {STEPS} steps: parameters of the {world} "
                   f"ranks against one process, largest difference {diff:.3e} "
                   f"against a largest move of {move:.3e} (tolerance {FROZEN_TOL} "
@@ -295,6 +411,82 @@ def agreement(world: int, batch: int, share_card: bool, device, smi: str) -> dic
         del model, state
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
+    return line
+
+
+def _max_diff_and_move(params: dict, want: dict, init) -> tuple:
+    """Largest |params - want| and the largest move of ``want`` from
+    ``init``'s parameters, over every parameter (CPU tensors)."""
+    start = {k: v.detach().cpu() for k, v in init.named_parameters()}
+    return (max(float((params[k] - want[k]).abs().max()) for k in want),
+            max(float((want[k] - start[k]).abs().max()) for k in want))
+
+
+def spatial(n: int, smi: str) -> dict:
+    """The image height sharded over ranks (module docstring): n NCCL
+    ranks as (n/2) × 2 against n as data only, or, on one card, 2 gloo
+    ranks sharing it as 1 × 2 against one process."""
+    share = n == 1
+    world = 2 if share else n
+    if world % 2:
+        raise ValueError(f"a spatial axis of 2 on {world} ranks")
+    backend = "gloo" if share else "nccl"
+    glob = 2 * n
+    spec = dict(backend=backend, share_card=share, global_batch=glob)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = run_ranks(world, None, dict(spec, spatial=2))
+    ranks_s = time.perf_counter() - t0
+    device = torch.device("cuda", 0)
+    config, init = setup(device)
+    if share:
+        what = "one process"
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ref = spatial_modes(init, config,
+                            spatial_batches(config, glob, SPATIAL_STEPS))
+    else:
+        what = f"{n} ranks as data {n}"
+        ref = run_ranks(world, None, dict(spec, spatial=1))[0]
+    layout = f"{world} {backend} ranks as data {world // 2} x spatial 2"
+    line = dict(layout=layout, against=what, global_batch=glob, card=smi,
+                ranks_seconds=ranks_s)
+    for mode in ("fp32_frozen", "bf16_train"):
+        a = outs[0][mode]["losses"]
+        if not all(torch.equal(o[mode]["losses"], a) for o in outs):
+            raise AssertionError(f"spatial {mode}: the ranks' losses differ")
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"spatial {mode}: non-finite loss on the ranks")
+        b = ref[mode]["losses"]
+        rel = ((a - b).abs() / b.abs()).tolist()
+        peak = max(o[mode]["peak_gib"] for o in outs)
+        print(f"spatial {mode}, {SPATIAL_STEPS} steps, {layout}, global batch "
+              f"{glob} at {config.height}²: losses "
+              + "; ".join(f"{x:.6f} / {y:.6f}" for x, y in zip(a.tolist(), b.tolist()))
+              + f" against {what}; relative differences "
+              f"{[f'{r:.2e}' for r in rel]}; {outs[0][mode]['ms']:.1f} ms a step "
+              f"on the bands (eager) against {ref[mode]['ms']:.1f} ms "
+              f"({outs[0][mode]['ms'] / ref[mode]['ms']:.3f}x); peak "
+              f"{peak:.2f} GiB a rank (against {ref[mode]['peak_gib']:.2f}); "
+              f"{outs[0][mode]['halos']:.0f} halo exchanges a step, remat "
+              f"recomputes included ({smi})", flush=True)
+        line[mode] = dict(rank_losses=a.tolist(), reference_losses=b.tolist(),
+                          rel_diff=rel, ms=outs[0][mode]["ms"],
+                          reference_ms=ref[mode]["ms"], peak_gib=peak,
+                          reference_peak_gib=ref[mode]["peak_gib"],
+                          halos_a_step=outs[0][mode]["halos"])
+        if mode == "bf16_train" and not max(rel) < BF16_LOSS_TOL:
+            raise AssertionError(f"bf16 losses on bands off {what}'s by more "
+                                 f"than {BF16_LOSS_TOL}")
+    diff, move = _max_diff_and_move(outs[0]["params"], ref["params"], init)
+    print(f"spatial fp32 frozen BN after {SPATIAL_STEPS} steps: parameters of "
+          f"the bands against {what}, largest difference {diff:.3e} against a "
+          f"largest move of {move:.3e} (tolerance {FROZEN_TOL} x the move); the "
+          f"ranks ran in {ranks_s:.1f} s, start-up included", flush=True)
+    line["fp32_frozen_params"] = dict(max_abs_diff=diff, max_move=move,
+                                      tol_of_move=FROZEN_TOL)
+    if not diff <= FROZEN_TOL * move:
+        raise AssertionError(f"the bands disagree with {what}")
     return line
 
 
@@ -370,7 +562,7 @@ def serving(n: int, smi: str, requests: int = 64) -> dict:
     return line
 
 
-PARTS = ("agreement", "scaling", "dryrun", "serving")
+PARTS = ("agreement", "scaling", "spatial", "dryrun", "serving")
 
 
 def main(argv=None) -> int:
@@ -392,6 +584,8 @@ def main(argv=None) -> int:
     if "agreement" in parts:
         line["agreement"] = agreement(max(n, 2), 2, n == 1,
                                       torch.device("cuda", 0), smi)
+    if "spatial" in parts and (n == 1 or n % 2 == 0):
+        line["spatial"] = spatial(n, smi)
     if "dryrun" in parts:
         t0 = time.perf_counter()
         out = run_tree([sys.executable, "-m",

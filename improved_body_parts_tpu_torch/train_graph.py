@@ -163,10 +163,11 @@ class MultiStep:
     steps run eagerly (the plain version). ``graphed`` is the capture, or
     None before the first call on the card. ``mesh``: the data-parallel
     mesh of the step, if any; ``eager_reason`` says why steps on the card
-    run eagerly (a gloo group), else None."""
+    run eagerly (a gloo group, or a step sharded into bands of rows:
+    ``spatial``), else None."""
 
     def __init__(self, step_fn: Callable, n_fixed: int = 0, pool=None,
-                 mesh=None):
+                 mesh=None, spatial: bool = False):
         self.step_fn = step_fn
         self.n_fixed = n_fixed
         self.pool = pool
@@ -178,6 +179,10 @@ class MultiStep:
             self.eager_reason = ("the gloo process group cannot be captured "
                                  "in a CUDA graph: K steps a dispatch run "
                                  "eagerly")
+        elif spatial:
+            self.eager_reason = ("a step sharded into bands of rows is not "
+                                 "captured (its halo exchanges): K steps a "
+                                 "dispatch run eagerly")
 
     def __call__(self, state, *args) -> dict:
         fixed, stacked = args[:self.n_fixed], args[self.n_fixed:-1]

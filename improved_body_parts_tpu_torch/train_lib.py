@@ -46,6 +46,18 @@ whose loss divides by the batch. The model is not wrapped in
 A resident store sharded over the ranks (``--resident-shard-store``)
 needs nothing more: each rank's plan indexes its own record range
 (``ResidentFeed.plan_batches(store_shards=world)``), with no collective.
+
+On a data × spatial mesh (``make_mesh(n, spatial=S)``) the ranks of a
+spatial group share a data slice. ``make_train_step`` shards the images'
+rows over them by default (``shard_spatial``; the JAX dry run's
+``P("data", "spatial")``): each rank runs the network on its band
+(``parallel/spatial.py``), the compact feed renders its band of the ground
+truth, and its loss is its band's share, so the gradients and the loss are
+summed over the spatial ranks and averaged over the data slices, in the
+same one all-reduce. The resident and K-steps steps run with the batch on
+the data axis and replicated over the spatial one (the JAX dry run's
+``P("data")``), and a sharded store shards over the data axis
+(``device_arrays(shard=(data_index, data_size))``).
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from improved_body_parts_tpu_torch.data.resident import BORDER_BGR
 from improved_body_parts_tpu_torch.losses import multi_task_loss
 from improved_body_parts_tpu_torch.ops.warp import affine_warp
 from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
+from improved_body_parts_tpu_torch.parallel.spatial import RowShard
 from improved_body_parts_tpu_torch.train_graph import MultiStep
 
 BN_MOMENTUM = 0.9        # Flax decay 0.9 == torch momentum 0.1
@@ -142,7 +155,8 @@ def _data_parallel(mesh) -> bool:
 
 def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
                     use_focal: bool = True, freeze_bn: bool = False,
-                    compact_gt: bool = False, mesh=None):
+                    compact_gt: bool = False, mesh=None,
+                    shard_spatial: Optional[bool] = None):
     """Build the train step ``(state, imgs, mask, heat, lr) -> metrics``.
 
     imgs: (B, H, W, 3) float in [0, 1], or uint8 (normalized in the step as
@@ -157,8 +171,13 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     ``state`` is updated in place; the returned metrics are 0-d tensors on
     the device: ``loss``, ``grad_norm`` and ``skipped`` (1.0 when the
     abnormal-loss rule kept the old state). With a data-parallel ``mesh``
-    the inputs are this rank's slice, and the metrics are the global
-    batch's, the same on every rank.
+    the inputs are this rank's slice (``process_batch_slice(mesh=)``), and
+    the metrics are the global batch's, the same on every rank.
+    ``shard_spatial`` (default: whether ``mesh`` has a spatial axis): imgs,
+    mask and the dense heat are this rank's band of the rows
+    (``shard_batch(shard_spatial=True)``), the compact feed's joints and
+    ``mask_all`` whole; else every rank of a spatial group takes the same
+    whole slice.
     """
     tcfg = cfg.train
     renderer = None
@@ -168,6 +187,11 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     names = [k for k, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     group = mesh.group if _data_parallel(mesh) else None
+    if shard_spatial is None:
+        shard_spatial = mesh is not None and mesh.spatial > 1
+    rows = RowShard.of(mesh) if shard_spatial else None
+    # the bands' shares add up over a spatial group; the slices average
+    slices = mesh.data_size if shard_spatial else None
 
     def step_fn(state: TrainState, imgs, mask, heat, lr):
         if state.model is not model:
@@ -177,20 +201,23 @@ def make_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
             # only deviation from the fp32 feed is the <=1/510 quantization
             imgs = imgs.float() / 255.0
         if compact_gt:
-            heat = renderer.render(*heat)
+            heat = renderer.render(*heat, rows=None if rows is None
+                                       else rows.range(renderer.h))
         # a dict: train-mode BN (over the global batch with a group)
         bn_stats = (None if freeze_bn else
                     {} if group is None else mesh_lib.BatchStats(group))
-        outs = model(imgs, bn_stats=bn_stats)
-        loss = multi_task_loss(outs, heat, mask, tcfg, use_focal=use_focal)
+        outs = model(imgs, bn_stats=bn_stats, rows=rows)
+        loss = multi_task_loss(outs, heat, mask, tcfg, use_focal=use_focal,
+                               rows=rows)
         grads = list(torch.autograd.grad(loss, params))
 
         with torch.no_grad():
             if group is not None:
                 # the global batch's gradient and loss: every rank's mean
-                # over its slice, averaged over the ranks in one all-reduce
+                # over its slice (its band's share of it), averaged over the
+                # slices in one all-reduce
                 *grads, loss = mesh_lib.all_reduce_mean(
-                    [*grads, loss.detach()], group)
+                    [*grads, loss.detach()], group, slices)
                 # the loss alone: a view would keep the flat buffer (every
                 # gradient) alive for as long as the caller keeps the metric
                 loss = loss.clone()
@@ -268,10 +295,12 @@ def make_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     ``resident_inputs`` (fp32; float64 for a float64 model), then the
     compact-GT step of ``make_train_step``. With a data-parallel ``mesh``,
     ``store`` may hold only this rank's record range and ``idx`` index it
-    (a sharded store): the gather is local.
+    (a sharded store): the gather is local. On a spatial mesh the batch is
+    replicated over the spatial axis (not sharded into bands).
     reference: JAX ``train_lib.make_resident_train_step``."""
     step = make_train_step(model, cfg, use_focal=use_focal,
-                           freeze_bn=freeze_bn, compact_gt=True, mesh=mesh)
+                           freeze_bn=freeze_bn, compact_gt=True, mesh=mesh,
+                           shard_spatial=False)
     dtype = torch.promote_types(next(model.parameters()).dtype, torch.float32)
 
     def resident_fn(state: TrainState, store, idx, inv_m, joints, lr):
@@ -284,7 +313,7 @@ def make_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
 def make_multi_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
                           use_focal: bool = True, freeze_bn: bool = False,
                           compact_gt: bool = False, pool=None,
-                          mesh=None) -> MultiStep:
+                          mesh=None, shard_spatial: bool = False) -> MultiStep:
     """n train steps a call: ``(state, imgs, mask, heat, lr) -> metrics``,
     where every input carries a leading step axis of length n (imgs (n, B,
     H, W, 3), ``lr`` (n,)) and the metrics come back stacked (n,). On the
@@ -293,12 +322,14 @@ def make_multi_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     graph shares, e.g. with the SWA epochs' graph. On the CPU, n eager
     steps. With a data-parallel ``mesh`` the collectives are inside the
     graph (NCCL); a gloo group cannot be captured, so its n steps run
-    eagerly (``MultiStep.eager_reason``). reference: JAX
+    eagerly (``MultiStep.eager_reason``). On a spatial mesh the batch is
+    replicated over the spatial axis unless ``shard_spatial``, whose step
+    runs eagerly (its exchanges are not captured). reference: JAX
     ``train_lib.make_multi_train_step`` (one ``lax.scan`` of the n steps)."""
     return MultiStep(make_train_step(model, cfg, use_focal=use_focal,
                                      freeze_bn=freeze_bn, compact_gt=compact_gt,
-                                     mesh=mesh),
-                     n_fixed=0, pool=pool, mesh=mesh)
+                                     mesh=mesh, shard_spatial=shard_spatial),
+                     n_fixed=0, pool=pool, mesh=mesh, spatial=shard_spatial)
 
 
 def make_multi_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,

@@ -10,7 +10,11 @@ the CPU; "cuda:0" puts every rank on the one card, still over gloo), and
 either global batches (``kind="train"``: (imgs, mask, joints, mask_all) a
 step, the compact feed) or a resident store with global plans
 (``kind="resident"``: the store's images, and plans made with
-``store_shards=world``; ``k`` > 1 takes them k steps a dispatch). Each
+``store_shards=world``; ``k`` > 1 takes them k steps a dispatch). With
+``spatial`` S the ranks lay out as data world/S × spatial S
+(``make_mesh(spatial=S)``) and each ``train`` step takes this rank's band
+of the images' and the mask's rows. ``kind="spatial_ops"`` runs
+``tests/_torch_spatial_cases.py`` instead. Each
 rank keeps its ``process_batch_slice`` of every batch (and its record
 range of the store), takes the steps of ``train_lib`` with the
 data-parallel mesh, leaves the group through ``parallel/mesh.shutdown``,
@@ -87,7 +91,14 @@ def main(spec_path, out_dir, rank, world, port):
     device = mesh_lib.initialize_multihost(f"localhost:{port}", world, rank,
                                            device=spec.get("device", "cpu"),
                                            backend="gloo", timeout_s=120)
-    mesh = mesh_lib.make_mesh()
+    if spec["kind"] == "spatial_ops":
+        from tests import _torch_spatial_cases
+        out = _torch_spatial_cases.run(rank, world)
+        torch.distributed.destroy_process_group()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        return
+    mesh = mesh_lib.make_mesh(spatial=spec.get("spatial", 1))
+    spatial = mesh.spatial > 1
     cfg, dtype = spec["config"], getattr(torch, spec["dtype"])
     model = PoseNet(cfg.model, compute_dtype=torch.float32,
                     generator=torch.Generator().manual_seed(0))
@@ -97,13 +108,17 @@ def main(spec_path, out_dir, rank, world, port):
     train_lib.load_payload(state, spec["payload"])
     freeze = spec["freeze_bn"]
     local = lambda a: torch.from_numpy(np.ascontiguousarray(
-        a[mesh_lib.process_batch_slice(a.shape[0])])).to(device)
+        a[mesh_lib.process_batch_slice(a.shape[0], mesh=mesh)])).to(device)
     metrics = []
     if spec["kind"] == "train":
         step = train_lib.make_train_step(model, cfg, freeze_bn=freeze,
                                          compact_gt=True, mesh=mesh)
         for (imgs, mask, joints, mask_all), lr in zip(spec["batches"], spec["lrs"]):
-            metrics.append(step(state, local(imgs), local(mask),
+            # on a spatial mesh: this rank's band of the images' and the
+            # mask's rows; the joints and mask_all whole
+            imgs, mask = mesh_lib.shard_batch(mesh, (imgs, mask),
+                                              shard_spatial=spatial)
+            metrics.append(step(state, imgs, mask,
                                 (local(joints), local(mask_all)), lr))
     else:
         st = spec["store"]

@@ -46,7 +46,8 @@ def test_mesh_without_a_process_group():
     mesh = mesh_lib.make_mesh(devices=["cpu", "cpu", "cpu"], n_devices=2)
     assert mesh.devices == (CPU, CPU) and mesh.device == CPU
     assert (mesh.rank, mesh.world, mesh.group) == (0, 1, None)
-    assert mesh.shape == {mesh_lib.DATA_AXIS: 2} and not mesh.data_parallel
+    assert mesh.shape == {mesh_lib.DATA_AXIS: 2, mesh_lib.SPATIAL_AXIS: 1}
+    assert not mesh.data_parallel
     assert mesh_lib.process_batch_slice(6) == slice(0, 6)
 
 
