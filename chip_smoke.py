@@ -55,12 +55,16 @@ fused and int8 arms (each kernel's launches counted exactly),
 (dense K = 1, resident K = 4 on the graph), ``tools.export_quantized`` on
 an ``apps.train``-layout ``.pth`` served bit for bit from the file,
 ``tools.eval_curve`` over two epochs and ``tools.e2e_trained_smoke``'s
-scoring; last, the ``spatial`` mesh axis (phase 14): the full-width
+scoring; then the ``spatial`` mesh axis (phase 14): the full-width
 ``Canonical`` train step at 512² with the image height sharded over two
 gloo ranks sharing the card (data 1 × spatial 2, halos exchanged around
 every conv), against one process on the same global batch of 2 (fp32
 frozen-BN parameters and losses, bf16 train-mode losses), with its ms a
-step, peak GiB a rank and halo exchanges a step.
+step, peak GiB a rank and halo exchanges a step; last, image files and the
+remaining tools (phase 15): a synthetic set written as PNG and read back
+through the port's own codec (``utils/imageio``, no cv2), bit for bit,
+``apps.evaluate.main`` on that directory against the in-memory frames,
+``tools.eval_tta_split`` against the fused TTA, and the ``visual`` scripts.
 
     python3 chip_smoke.py
 
@@ -110,8 +114,15 @@ EDGE_PEAKS = (1, 8, 33)
 EDGE_FOOTPRINTS = (("plus", 2), ("square", 1))
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
+    """The phase's header on stdout; the seconds since the start on stderr,
+    so the run's time can be split by phase."""
     print(f"== {name}", flush=True)
+    print(f"chip_smoke: phase {name.split()[0]} starts at "
+          f"{time.perf_counter() - _START:.1f} s", file=sys.stderr, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -2424,6 +2435,213 @@ def spatial_axis(smi: str) -> dict:
     return multi_card.spatial(1, smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: image files and the remaining tools on the card
+# ---------------------------------------------------------------------------
+
+N_FILES = 8
+SPLIT_SCALES = (0.5, 1.0, 1.5)
+ANY_PEAK = "Phase15AnyPeak"      # Canonical with every threshold at 0
+
+
+def _median_ms(fn, items) -> tuple:
+    """(median ms of ``fn`` over ``items`` on the host's clock, results)."""
+    out, times = [], []
+    for x in items:
+        t0 = time.perf_counter()
+        out.append(fn(x))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def image_files_and_tools(model, config, device, smi, n_params: int) -> dict:
+    """Phase 15: (a) ``make_synthetic_coco``'s set of 8 512² frames written
+    with ``utils/imageio`` and read back, equal to the in-memory frames bit
+    for bit (ms a frame each way; whether cv2 imports here); (b)
+    ``apps.evaluate.main`` on that directory with the phase-3 weights as a
+    ``.pth``: its detections equal ``evaluate_frames`` on the in-memory
+    frames (deterministic cuDNN), ``nms`` launched once a frame; (c)
+    ``tools.eval_tta_split`` at scales (0.5, 1, 1.5) through its CLI and
+    timed on the frames beside the fused TTA (``evaluate_frames(
+    scale_search=)``): both APs, both ms a frame, the two maps' largest
+    difference as a share of the fused maps' span on one frame; (d)
+    ``visual.draw_net`` (the parameter count of phase 3), ``visual.
+    line_integral`` on the card and ``visual.heatmap_vis`` through
+    ``imageio``. (b) and (c) run ``Canonical`` with its peak, limb and
+    person thresholds at 0 (registered as ``ANY_PEAK`` for the CLIs): the
+    random weights' maps find no one at the reference's thresholds, and the
+    comparisons need detections."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from improved_body_parts_tpu_torch import configs
+
+    from improved_body_parts_tpu_torch.apps import evaluate
+    from improved_body_parts_tpu_torch.infer.predict import Predictor
+    from improved_body_parts_tpu_torch.ops import kernels
+    from improved_body_parts_tpu_torch.tools import eval_tta_split, make_synthetic_coco
+    from improved_body_parts_tpu_torch.utils import imageio
+    from improved_body_parts_tpu_torch.visual import draw_net, heatmap_vis, line_integral
+
+    probe = subprocess.run([sys.executable, "-c", "import cv2; print(cv2.__version__)"],
+                           capture_output=True, text=True, timeout=120)
+    line = {"cv2": probe.stdout.strip() if probe.returncode == 0 else None}
+    config = dataclasses.replace(config, infer=dataclasses.replace(
+        config.infer, thre1=0.0, thre2=0.0, min_person_score=0.0,
+        min_person_parts=1))
+    configs.CONFIGS[ANY_PEAK] = config
+    frames, gt = evaluate.synthetic_coco(N_FILES, size=512)
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the PNG set, written and read back without cv2
+        img_dir = os.path.join(root, "syn", "images")
+        names = {im["id"]: im["file_name"] for im in gt["images"]}
+        t0 = time.perf_counter()
+        gt_json = make_synthetic_coco.write(os.path.join(root, "syn"), frames, gt)
+        write_ms = (time.perf_counter() - t0) * 1e3 / N_FILES
+        read_ms, back = _median_ms(
+            lambda f: imageio.imread(os.path.join(img_dir, names[f[0]])), frames)
+        for (image_id, want), got in zip(frames, back):
+            if got.dtype != np.uint8 or not np.array_equal(got, want):
+                raise AssertionError(f"PNG {names[image_id]} read back differs")
+        n_bytes = sum(os.path.getsize(os.path.join(img_dir, n)) for n in names.values())
+        # libpng's time on the same files and host, where cv2 imports (in a
+        # child process: the port's process never imports cv2 here)
+        cv2_ms = None
+        if line["cv2"]:
+            code = ("import cv2, statistics, sys, time\nts = []\n"
+                    "for p in sys.argv[1:]:\n"
+                    "    t0 = time.perf_counter()\n"
+                    "    assert cv2.imread(p) is not None\n"
+                    "    ts.append((time.perf_counter() - t0) * 1e3)\n"
+                    "print(statistics.median(ts))")
+            cv2_ms = float(subprocess.run(
+                [sys.executable, "-c", code,
+                 *(os.path.join(img_dir, names[i]) for i, _ in frames)],
+                check=True, capture_output=True, text=True, timeout=120).stdout)
+        print(f"image files: {N_FILES} 512² PNGs written by utils/imageio "
+              f"({write_ms:.1f} ms a frame, {n_bytes / N_FILES / 1e3:.0f} kB each) "
+              f"and read back equal to the in-memory frames bit for bit "
+              f"(decode {read_ms:.1f} ms a frame, median; host CPU); cv2 "
+              f"here: {line['cv2'] or 'does not import'} (PNG never goes "
+              "through it; its cv2.imread of the same files: "
+              f"{'%.2f ms a frame' % cv2_ms if cv2_ms is not None else 'not run'})",
+              flush=True)
+        line["png"] = dict(frames=N_FILES, equal=True, write_ms=write_ms,
+                           decode_ms=read_ms, decode_ms_cv2=cv2_ms,
+                           kb_each=n_bytes / N_FILES / 1e3)
+
+        # (b) the evaluator's CLI on the files against the in-memory frames
+        pth = os.path.join(root, "phase3.pth")
+        torch.save({"weights": {k: v.cpu() for k, v in model.state_dict().items()}},
+                   pth)
+        pred = Predictor(model, config, device=device)
+        results = os.path.join(root, "results")
+        split_dir = os.path.join(root, "split")
+        torch.backends.cudnn.deterministic = True      # CLI = function, exactly
+        try:
+            want = evaluate.evaluate_frames(pred, frames).outputs
+            kernels.reset_launch_counts()
+            rc = evaluate.main(["--checkpoint", pth, "--config", ANY_PEAK,
+                                "--image-dir", img_dir,
+                                "--gt-json", gt_json, "--results-dir", results,
+                                "--dump-name", "phase15", "--device", str(device)])
+            torch.cuda.synchronize()
+            nms_launches = kernels.nms.launches
+            # (c)'s CLI, on the files, and its function on the frames
+            split_rc = eval_tta_split.main([
+                "--checkpoint", pth, "--config", ANY_PEAK, "--image-dir", img_dir,
+                "--gt-json", gt_json, "--scale-search", *map(str, SPLIT_SCALES), "--results-dir",
+                split_dir, "--device", str(device)])
+            split_want = eval_tta_split.evaluate_split(
+                pred, frames, SPLIT_SCALES, log=lambda s: None).outputs
+        finally:
+            torch.backends.cudnn.deterministic = False
+        with open(os.path.join(results, "val2017_phase15_results.json")) as f:
+            got = json.load(f)
+        if rc != 0 or got != want or not got:
+            raise AssertionError(f"apps.evaluate.main on the PNGs: rc {rc}, "
+                                 f"{len(got)} detections against {len(want)} "
+                                 "in memory, none, or they differ")
+        if nms_launches != N_FILES:
+            raise AssertionError(f"apps.evaluate.main launched nms {nms_launches} "
+                                 f"times for {N_FILES} frames")
+        print(f"apps.evaluate.main on the PNG directory: {len(got)} detections, "
+              f"equal to evaluate_frames on the in-memory frames; nms launches "
+              f"{nms_launches}", flush=True)
+        line["evaluate_main"] = dict(detections=len(got), equal=True,
+                                     nms_launches=nms_launches)
+
+        # (c) the split TTA (the reference's host scale loop) against the fused
+        with open(os.path.join(split_dir, "val2017_tta_split_results.json")) as f:
+            split_cli = json.load(f)
+        if split_rc != 0 or split_cli != split_want or not split_cli:
+            raise AssertionError(f"tools.eval_tta_split's CLI on the PNGs (rc "
+                                 f"{split_rc}) and its function on the frames "
+                                 "disagree, or found no one")
+        ids = [i for i, _ in frames]
+        runs = {}
+        for arm in ("fused", "split", "split", "fused"):    # in turns, warm
+            if arm == "fused":
+                run = evaluate.evaluate_frames(pred, frames, scale_search=SPLIT_SCALES)
+            else:
+                run = eval_tta_split.evaluate_split(pred, frames, SPLIT_SCALES,
+                                                    log=lambda s: None)
+            torch.cuda.synchronize()
+            runs.setdefault(arm, []).append(run)
+        ap = {arm: float(evaluate.score(gt, rs[-1].outputs, ids,
+                                        print_fn=lambda *a: None)[0])
+              for arm, rs in runs.items()}
+        ms = {arm: min(r.seconds for r in rs) * 1e3 / N_FILES
+              for arm, rs in runs.items()}
+        img = frames[0][1]
+        factors = evaluate.image_scales(SPLIT_SCALES, config.infer.boxsize,
+                                        img.shape[0], 4)
+        split_maps, _ = eval_tta_split.split_tta_maps(pred, img, factors)
+        with torch.inference_mode():
+            fused_maps = pred._maps(pred._pad(img)[0][None], scales=factors)[0]
+        span = float(fused_maps.max() - fused_maps.min())
+        gap = float((split_maps - fused_maps.float()).abs().max()) / span
+        if not (np.isfinite(gap) and span > 0):
+            raise AssertionError(f"split against fused maps: gap {gap}, span {span}")
+        print(f"eval_tta_split at scales {SPLIT_SCALES}: AP {ap['split']:.4f} "
+              f"(fused TTA {ap['fused']:.4f}; random weights); "
+              f"{ms['split']:.1f} ms a frame against {ms['fused']:.1f} for the "
+              f"fused TTA (ratio {ms['split'] / ms['fused']:.3f}); maps of frame "
+              f"0 differ by at most {gap:.3e} of their span ({smi})", flush=True)
+        line["tta_split"] = dict(scales=SPLIT_SCALES, ap_split=ap["split"],
+                                 ap_fused=ap["fused"], ms_split=ms["split"],
+                                 ms_fused=ms["fused"],
+                                 ratio=ms["split"] / ms["fused"],
+                                 map_gap_of_span=gap,
+                                 detections=len(runs["split"][-1].outputs))
+        del pred
+
+        # (d) the visual scripts
+        stats = draw_net.describe(config.model, device)
+        if stats["params"] != n_params:
+            raise AssertionError(f"draw_net counts {stats['params']} parameters, "
+                                 f"phase 3 {n_params}")
+        samples = line_integral.samples(device)
+        means = {k: float(v.mean()) for k, v in samples.items()}
+        if not means["true limb"] > 0.9 > 0.2 > means["wrong pairing"]:
+            raise AssertionError(f"line_integral means {means}")
+        vis = os.path.join(root, "heatmap_vis.png")
+        heatmap_vis.main(["--out", vis])
+        if imageio.imread(vis).shape != (512, 1536, 3):
+            raise AssertionError("heatmap_vis wrote a malformed PNG")
+        print(f"visual: draw_net {stats['params']:,} parameters (= phase 3), "
+              f"{stats['flops'] / 1e9:.1f} GFLOPs a 128² frame; line_integral on "
+              f"the card: true limb {means['true limb']:.3f}, wrong pairing "
+              f"{means['wrong pairing']:.3f}; heatmap_vis written", flush=True)
+        line["visual"] = dict(draw_net_params=stats["params"],
+                              draw_net_gflops_128=stats["flops"] / 1e9,
+                              line_integral=means, heatmap_vis=True)
+    del configs.CONFIGS[ANY_PEAK]
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2653,6 +2871,15 @@ def main() -> int:
     spatial_line = spatial_axis(smi)
     print(json.dumps({"spatial": spatial_line}), flush=True)
 
+    # -- 15: image files and the remaining tools ----------------------------------------
+    phase(f"15 image files and the remaining tools: {N_FILES} PNGs through utils/imageio, "
+          f"apps.evaluate.main on them, eval_tta_split at {SPLIT_SCALES} against the "
+          "fused TTA, draw_net, line_integral, heatmap_vis")
+    files_line = image_files_and_tools(model, config, device, smi, n_params)
+    print(json.dumps({"image_io_and_tools": files_line}), flush=True)
+
+    print(f"chip_smoke: all phases done at {time.perf_counter() - _START:.1f} s",
+          file=sys.stderr, flush=True)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

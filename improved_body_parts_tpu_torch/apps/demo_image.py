@@ -12,8 +12,9 @@ is visible and no ``--device`` was named.
 
 ``--synthetic`` runs the post-processing on a two-person ground-truth
 scene (no network, no weights) and exits 0 when it finds both people.
-Reading and writing images needs cv2; ``run_synthetic`` and
-``build_predictor`` do not.
+Images are read and written with ``utils/imageio`` (PNG without cv2,
+other formats through cv2); drawing the skeletons (``utils/common``)
+needs cv2. ``run_synthetic`` and ``build_predictor`` need neither.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from improved_body_parts_tpu_torch.utils.checkpoint import load_reference_pth
 from improved_body_parts_tpu_torch.utils.common import (
     draw_humans, draw_humans_ellipse, show_color_vector,
 )
+from improved_body_parts_tpu_torch.utils import imageio
 from improved_body_parts_tpu_torch.utils.device import require_cuda
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -227,17 +229,17 @@ def main(argv=None) -> int:
                                     use_cpp=args.run_cpp)
         print(f"synthetic scene: found {len(kps)} people "
               f"(scores: {np.round(scores, 3).tolist()}) in {time.time()-t0:.2f}s")
-        import cv2
-        cv2.imwrite(args.output, draw_humans(np.zeros((256, 256, 3), np.uint8), kps))
+        imageio.imwrite(args.output,
+                        draw_humans(np.zeros((256, 256, 3), np.uint8), kps))
         print(f"wrote {args.output}")
         return 0 if len(kps) == 2 else 1
 
     if not args.image:
         parser.error("--image is required (or use --synthetic)")
-    import cv2
-    img = cv2.imread(args.image)
-    if img is None:
-        print(f"cannot read image: {args.image}")
+    try:
+        img = imageio.imread(args.image)
+    except (OSError, imageio.ImageDecodeError) as e:
+        print(f"cannot read image: {args.image} ({e})")
         return 1
 
     predictor = build_predictor(args.checkpoint, args.config, args.refine,
@@ -252,10 +254,11 @@ def main(argv=None) -> int:
 
     canvas = (draw_humans_ellipse(img, kps) if args.ellipse
               else draw_humans(img, kps))
-    cv2.imwrite(args.output, canvas)
+    imageio.imwrite(args.output, canvas)
     print(f"wrote {args.output}")
 
     if args.show_maps:
+        import cv2
         # stride-4 maps -> image resolution, like the reference's upsampled
         # paf_avg/heatmap_avg (demo_image.py:96-122)
         h, w = img.shape[:2]

@@ -8,7 +8,8 @@
 It runs on the card unless ``--device cpu`` is given (``default_device``).
 
 The evaluation itself is ``evaluate_frames``, over frames already in
-memory; ``main`` reads the images (cv2), writes
+memory; ``main`` reads the images (``utils/imageio.imread``: PNG without
+cv2, so also on the card's machine; other formats through cv2), writes
 ``<results-dir>/<subset>_<dump-name>_results.json`` and scores it: with the
 port's ``utils/oks_eval`` for ``--gt-json``, and for a COCO
 directory with pycocotools where it is installed. ``synthetic_coco`` makes
@@ -33,6 +34,7 @@ from improved_body_parts_tpu_torch.apps.demo_image import (
 from improved_body_parts_tpu_torch.configs import ORDER_COCO
 from improved_body_parts_tpu_torch.data.synthetic import random_people, render_image
 from improved_body_parts_tpu_torch.infer.serving import PipelinedServer
+from improved_body_parts_tpu_torch.utils import imageio
 from improved_body_parts_tpu_torch.utils.oks_eval import KeypointEval
 
 NUM_COCO_KEYPOINTS = 17
@@ -297,12 +299,12 @@ def main(argv=None) -> int:
         images = images[:args.max_images]
     print(f"evaluating {len(images)} images")
 
-    import cv2
     frames = []
     for image_id, path in images:
-        img = cv2.imread(path)
-        if img is None:
-            print(f"skip unreadable {path}")
+        try:
+            img = imageio.imread(path)
+        except (OSError, imageio.ImageDecodeError) as e:
+            print(f"skip unreadable {path} ({e})")
             continue
         frames.append((image_id, img))
     run = evaluate_frames(

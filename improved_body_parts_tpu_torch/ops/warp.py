@@ -1,7 +1,8 @@
 """Resizing and bilinear affine warping of image batches, for multi-scale
 and rotation TTA, and for the resident training feed's augmentation (one
 map a sample, ``data/resident.py``); and the uint8 resize of a host frame
-that letterboxing needs (``resize_cubic_u8``), without OpenCV.
+that letterboxing needs (``resize_cubic_u8``) and the bilinear one of the
+int8 export's calibration images (``resize_linear_u8``), without OpenCV.
 
 Port of ``improved_body_parts_tpu/ops/warp.py``. The JAX functions take one
 (H, W, C) array and are ``vmap``ped; these take (..., H, W, C) with any
@@ -121,6 +122,67 @@ def resize_cubic_u8(img: np.ndarray, dsize=None, fx: float = 0.0,
             acc = s[:, k] * b[:, k] + acc
         out[:, :n_vec] = torch.round(acc).to(torch.int32)
     return out.clamp_(0, 255).to(torch.uint8).reshape(shape).numpy()
+
+
+def _linear_taps_u8(n_out: int, n_in: int, scale: float, clamp: bool):
+    """(first source index (n_out,), clamped; coefficients (n_out, 2) int64
+    at 2048) of OpenCV's fixed-point linear along one axis. ``clamp``: the
+    horizontal axis's border rule, the index clamped and the fraction
+    zeroed where it leaves the frame; the vertical axis keeps the fraction
+    and clamps only the two rows it reads."""
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    x = f - s                                    # float32, as OpenCV's fx -= sx
+    s = s.astype(np.int64)
+    if clamp:
+        out = (s < 0) | (s >= n_in - 1)
+        x = np.where(out, np.float32(0), x)
+        s = np.clip(s, 0, n_in - 1)
+    coef = np.rint(np.stack([np.float32(1) - x, x], 1) * np.float32(_COEF_SCALE))
+    return s, coef.astype(np.int64)
+
+
+def resize_linear_u8(img: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.resize(img, dsize)`` (INTER_LINEAR, cv2's default) for a uint8
+    (H, W) or (H, W, C) frame, bit for bit with OpenCV's own code
+    (imgproc/src/resize.cpp), in numpy. ``dsize`` is (width, height). The
+    source coordinate ``(d + 0.5) * scale - 0.5`` in float, floored; the
+    weights ``1 - f`` and ``f`` rounded to ``short`` at 2048; the
+    horizontal pass summed in ``int``; the vertical pass as
+    ``VResizeLinear``'s fixed point, ``((b0 * (S0 >> 4)) >> 16) + ((b1 *
+    (S1 >> 4)) >> 16) + 2) >> 2`` (its SIMD loop computes the same). An
+    exact halving of both sides is OpenCV's fast area mean instead, as
+    there: ``(sum of the 2 x 2 block + 2) >> 2`` for 1, 3 or 4 channels,
+    the float mean rounded half to even otherwise."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"expected a uint8 frame, got {img.dtype}")
+    h, w = img.shape[:2]
+    ow, oh = int(dsize[0]), int(dsize[1])
+    if ow <= 0 or oh <= 0:
+        raise ValueError(f"resize of a {w}x{h} frame to {ow}x{oh}")
+    c = img.shape[2] if img.ndim == 3 else 1
+    shape = (oh, ow, c) if c > 1 else (oh, ow)     # cv2 returns 1 channel 2-D
+    src = np.ascontiguousarray(img).reshape(h, w, c).astype(np.int64)
+    if (ow, oh) == (w, h):
+        return img.reshape(shape).copy()
+    if (w, h) == (2 * ow, 2 * oh):
+        block = (src[0::2, 0::2] + src[0::2, 1::2] + src[1::2, 0::2]
+                 + src[1::2, 1::2])
+        if c in (1, 3, 4):
+            out = (block + 2) >> 2
+        else:
+            out = np.rint(block.astype(np.float32) * np.float32(0.25))
+        return out.astype(np.uint8).reshape(shape)
+    sx, ax = _linear_taps_u8(ow, w, w / ow, clamp=True)
+    sy, by = _linear_taps_u8(oh, h, h / oh, clamp=False)
+    sx1 = np.minimum(sx + 1, w - 1)
+    hor = (src[:, sx] * ax[None, :, 0, None]
+           + src[:, sx1] * ax[None, :, 1, None])            # (h, ow, c), int
+    r0 = hor[np.clip(sy, 0, h - 1)] >> 4
+    r1 = hor[np.clip(sy + 1, 0, h - 1)] >> 4
+    out = (((by[:, 0, None, None] * r0) >> 16)
+           + ((by[:, 1, None, None] * r1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(shape)
 
 
 def resize_cubic_cv2(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

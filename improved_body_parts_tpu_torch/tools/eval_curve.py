@@ -13,8 +13,9 @@ arm scores the same images with the port's OKS evaluator
 (``predict_skeletons`` per image, as the JAX tool), and prints one JSON row
 with the JAX tool's keys (``arm``, ``ap``, ``ap50``, ``ap75``, ``ar``,
 ``n_dets``, ``seconds``). A missing checkpoint is reported and skipped, as
-there. ``curve`` takes frames already in memory (the card's machine has no
-image decoder); ``main`` reads the images with cv2.
+there. ``curve`` takes frames already in memory; ``main`` reads the
+images with ``utils/imageio.imread`` (PNG without cv2, so also on the
+card's machine).
 
 Runs on the card unless ``--device cpu`` is given, and raises when there is
 no card and no ``--device``.
@@ -96,7 +97,7 @@ def main(argv=None) -> int:
                     help="cpu, or a CUDA device (default: the card)")
     args = ap.parse_args(argv)
 
-    import cv2
+    from improved_body_parts_tpu_torch.utils.imageio import imread
 
     device = default_device(args.device)
     with open(args.gt_json) as f:
@@ -104,7 +105,7 @@ def main(argv=None) -> int:
     by_name = {im["file_name"]: im["id"] for im in gt_data["images"]}
     images = sorted((by_name[n], os.path.join(args.image_dir, n))
                     for n in os.listdir(args.image_dir) if n in by_name)
-    frames = [(i, cv2.imread(p)) for i, p in images]
+    frames = [(i, imread(p)) for i, p in images]
     print(f"{len(frames)} images, epochs {args.epochs}"
           f"{' + swa' if args.swa else ''}")
     predictor = build_predictor("", args.config, device=device)

@@ -8,7 +8,9 @@
 Port of the JAX package's ``tools/export_quantized.py``. It folds BN,
 calibrates the activation scales on rendered multi-person scenes
 (``SyntheticDataset(config, length=8, seed=1234)`` in batches of 4) or on
-``--calib-dir`` images (read with cv2), and writes the int8 ``.pth`` of
+``--calib-dir`` images (read with ``utils/imageio.imread`` and resized
+with ``ops/warp.resize_linear_u8``, cv2's bilinear bit for bit, so no cv2
+is needed), and writes the int8 ``.pth`` of
 ``models.quantize.save_quantized``, about 4x smaller than the fp32 weights,
 which every app loads with ``--quantize int8 --checkpoint <out>`` without
 calibrating. The input is a reference-layout ``.pth`` (a released file, a
@@ -35,15 +37,21 @@ def calibration_batches(config, size: int, n: int = 8,
                         calib_dir: str = "") -> List[np.ndarray]:
     """(B, size, size, 3) float images in [0, 1], RGB, in batches of 4:
     ``n`` synthetic scenes (seed 1234), or the first ``n`` images of
-    ``calib_dir`` resized with cv2."""
+    ``calib_dir`` resized to size x size with ``cv2.resize``'s default
+    (bilinear) as the JAX tool does; an entry that is not a readable image
+    (a subdirectory, a corrupt file) is skipped, as there."""
     if calib_dir:
-        import cv2
+        from improved_body_parts_tpu_torch.ops.warp import resize_linear_u8
+        from improved_body_parts_tpu_torch.utils.imageio import (
+            ImageDecodeError, imread,
+        )
         imgs = []
         for name in sorted(os.listdir(calib_dir))[:n]:
-            img = cv2.imread(os.path.join(calib_dir, name))
-            if img is None:
+            try:
+                img = imread(os.path.join(calib_dir, name))
+            except (OSError, ImageDecodeError):
                 continue
-            img = cv2.resize(img, (size, size))[:, :, ::-1]
+            img = resize_linear_u8(img, (size, size))[:, :, ::-1]
             imgs.append(img.astype(np.float32) / 255.0)
         return [np.stack(imgs[i:i + 4]) for i in range(0, len(imgs), 4)]
     from improved_body_parts_tpu_torch.data.synthetic import SyntheticDataset

@@ -8,14 +8,15 @@ over val2017).
     python -m improved_body_parts_tpu_torch.apps.evaluate --checkpoint <pth> \
         --image-dir syncoco/images --gt-json syncoco/gt.json
 
-Port of the JAX package's ``tools/make_synthetic_coco.py``: the same PNGs
-and ``gt.json``. The scenes and their ground truth come from
+Port of the JAX package's ``tools/make_synthetic_coco.py``: the same
+images (decoded pixel for pixel; the PNG files are written by
+``utils/imageio``, not cv2, so their bytes differ) and ``gt.json``. The scenes and their ground truth come from
 ``apps.evaluate.synthetic_coco``, which the evaluator also uses in memory,
 so the set written here and the set evaluated without files cannot drift
 apart. The GT follows the real annotation schema (images / annotations /
 categories, 17 COCO-order keypoints, area, bbox, num_keypoints, iscrowd),
-so it also scores under pycocotools where that is installed. Writing PNGs
-needs cv2 (imported by ``main`` only); host only, no card.
+so it also scores under pycocotools where that is installed. Host only, no
+card, no cv2.
 """
 
 from __future__ import annotations
@@ -30,13 +31,13 @@ def write(out_dir: str, frames, gt) -> str:
     """``frames`` ([(image_id, BGR uint8)]) as ``<out_dir>/images/<file
     name of gt>`` PNGs and ``gt`` as ``<out_dir>/gt.json``; the json's
     path."""
-    import cv2
+    from improved_body_parts_tpu_torch.utils.imageio import imwrite
 
     img_dir = os.path.join(out_dir, "images")
     os.makedirs(img_dir, exist_ok=True)
     names = {im["id"]: im["file_name"] for im in gt["images"]}
     for image_id, img in frames:
-        cv2.imwrite(os.path.join(img_dir, names[image_id]), img)
+        imwrite(os.path.join(img_dir, names[image_id]), img)
     gt_path = os.path.join(out_dir, "gt.json")
     with open(gt_path, "w") as f:
         json.dump(gt, f)

@@ -203,6 +203,39 @@ def test_evaluate_cli_coco_layout_pipeline(tiny, coco, tmp_path, capsys):
     _assert_detections_match(got, want.outputs)
 
 
+def test_evaluate_cli_skips_listed_but_unreadable_files(tiny, coco, tmp_path,
+                                                        capsys):
+    """--coco-dir whose annotations list a file that is absent and one that
+    is a directory: both are reported and skipped (as cv2.imread's None was),
+    and the rest is evaluated as evaluate_frames evaluates it."""
+    import shutil
+    path, _ = tiny
+    frames, gt, img_dir, gt_json = coco
+    root = tmp_path / "coco"
+    os.makedirs(root / "annotations")
+    shutil.copy(gt_json, root / "annotations" / "person_keypoints_val2017.json")
+    shutil.copytree(img_dir, root / "val2017")
+    names = {im["id"]: im["file_name"] for im in gt["images"]}
+    gone, folder = frames[1][0], frames[2][0]
+    os.remove(root / "val2017" / names[gone])
+    os.remove(root / "val2017" / names[folder])
+    os.makedirs(root / "val2017" / names[folder])
+    rc = tevaluate.main([
+        "--checkpoint", path, "--config", CONFIG_NAME, "--coco-dir", str(root),
+        "--run_cpp", "--device", "cpu", "--dtype", "float32",
+        "--results-dir", str(tmp_path), "--dump-name", "gaps"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "evaluating 4 images" in out
+    for image_id in (gone, folder):
+        assert f"skip unreadable {root / 'val2017' / names[image_id]}" in out
+    with open(tmp_path / "val2017_gaps_results.json") as f:
+        got = json.load(f)
+    kept = [f for f in frames if f[0] not in (gone, folder)]
+    want = tevaluate.evaluate_frames(_port_predictor(path), kept, run_cpp=True)
+    _assert_detections_match(got, want.outputs)
+
+
 def test_build_predictor_loads_pth_and_refuses_the_rest(tiny, tmp_path):
     path, jpred = tiny
     pred = _port_predictor(path)

@@ -68,7 +68,11 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     for m in ("ops.kernels", "ops.warp", "ops.group_cpp", "apps.demo_image",
               "apps.evaluate", "infer.serving", "data.synthetic",
-              "utils.oks_eval", "configs"):
+              "utils.oks_eval", "configs", "utils.imageio",
+              "data.build_records", "data.coco_shim", "tools.bench_pipeline",
+              "tools.eval_tta_split", "tools.measure_deviations",
+              "tools.ref_ap_ab", "visual.draw_net", "visual.heatmap_vis",
+              "visual.line_integral"):
         assert "improved_body_parts_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

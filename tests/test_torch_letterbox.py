@@ -13,6 +13,12 @@ deviation is one level, on up to ~6% of the values (none of 442,368 for a
 1920x1080 frame to 512x288 in one seed, 2 in another; 4.4% for 300x1000
 to 154x512; 5.8% for 300x300 to 9x7), and the tests hold that bound. With IPP off, ``letterbox`` and ``pad_image_to_bucket`` give the
 JAX package's uint8 canvases and scales bit for bit.
+
+The bilinear ``resize_linear_u8`` (the int8 export's calibration resize)
+is held to cv2's default ``cv2.resize(img, dsize)`` bit for bit with IPP
+on and off: OpenCV keeps IPP's linear resize off by default, as it does
+not match its own, so both routes are OpenCV's fixed point; an exact
+halving of both sides is OpenCV's 2 x 2 area mean.
 """
 
 import contextlib
@@ -30,7 +36,7 @@ from improved_body_parts_tpu import configs as jconfigs
 from improved_body_parts_tpu.infer import predict as jpredict
 from improved_body_parts_tpu_torch import configs as tconfigs
 from improved_body_parts_tpu_torch.infer import predict as tpredict
-from improved_body_parts_tpu_torch.ops.warp import resize_cubic_u8
+from improved_body_parts_tpu_torch.ops.warp import resize_cubic_u8, resize_linear_u8
 from tests.test_torch_predict import single_torch_thread  # noqa: F401  (autouse)
 
 FRAMES = [(1080, 1920), (480, 640), (1000, 300), (512, 384), (384, 512),
@@ -93,6 +99,34 @@ def test_resize_against_cv2_with_ipp_within_one_level(h, w, oh, ow):
         want = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_CUBIC)
     d = np.abs(resize_cubic_u8(img, (ow, oh)).astype(int) - want)
     assert d.max() <= 1 and (d > 0).mean() <= 0.1, (d.max(), (d > 0).sum())
+
+
+@settings(max_examples=30, deadline=None)
+@given(h=st.integers(1, 800), w=st.integers(1, 800), oh=st.integers(1, 800),
+       ow=st.integers(1, 800), c=st.sampled_from([0, 1, 3, 4]),
+       use_ipp=st.booleans(), seed=st.integers(0, 2 ** 31 - 1))
+def test_resize_linear_is_cv2_bit_for_bit(h, w, oh, ow, c, use_ipp, seed):
+    img = _frame(np.random.RandomState(seed), h, w, c)
+    with ipp(use_ipp):
+        want = cv2.resize(img, (ow, oh))
+    got = resize_linear_u8(img, (ow, oh))
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("h,w,oh,ow,c", [(128, 128, 64, 64, 3), (6, 10, 3, 5, 1),
+                                         (2, 2, 1, 1, 4), (8, 8, 4, 4, 2),
+                                         (512, 384, 256, 192, 0), (7, 13, 7, 13, 3),
+                                         (1, 1, 64, 64, 3), (40, 40, 20, 40, 3)])
+def test_resize_linear_halving_and_edges_are_cv2(h, w, oh, ow, c):
+    """The exact halvings (OpenCV's fast area mean, rounded up for 1, 3 or 4
+    channels, half to even for 2), an identity, a 1-pixel frame and a
+    halving of one side only (bilinear)."""
+    img = _frame(np.random.RandomState(h + w + c), h, w, c)
+    for use_ipp in (False, True):
+        with ipp(use_ipp):
+            want = cv2.resize(img, (ow, oh))
+        np.testing.assert_array_equal(resize_linear_u8(img, (ow, oh)), want)
 
 
 def _predictors():

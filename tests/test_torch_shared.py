@@ -2,11 +2,13 @@
 (``configs``, ``ops.group``, ``ops.group_cpp`` with ``csrc/grouping.cpp``,
 ``data.heatmaps``, ``data.synthetic`` with the trainer's feeds,
 ``data.prefetch``, ``data.pipeline``, ``utils.common``, ``utils.oks_eval``,
-``utils.config_reader``, ``infer.serving``). Each copy is held against its original on the same
+``utils.config_reader``, ``infer.serving``, ``data.coco_shim``,
+``data.build_records``). Each copy is held against its original on the same
 numpy inputs, exactly; the compact feed's bf16 arrays are torch tensors in
 the port and ``ml_dtypes`` arrays in the JAX package, compared as fp32."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -368,3 +370,103 @@ def test_coco_h5_dataset_matches(tmp_path, compact):
         jpipeline.AugmentSelection(flip=True, degree=10.0, scale=1.2)
     np.testing.assert_array_equal(a.affine((100.0, 80.0), 0.4, cfg)[0],
                                   b.affine((100.0, 80.0), 0.4, jcfg)[0])
+
+
+# ---------------------------------------------------------------------------
+# the COCO record builder and its annotation shim
+# ---------------------------------------------------------------------------
+
+def _shim_masks(seed, h=37, w=23):
+    """A random mask, its uncompressed and compressed RLE, and a polygon."""
+    from tests.test_builder_seam import encode_rle_counts, mask_to_uncompressed_rle
+    rng = np.random.RandomState(seed)
+    mask = (rng.rand(h, w) > 0.6).astype(np.uint8)
+    rle = mask_to_uncompressed_rle(mask)
+    packed = {"counts": encode_rle_counts(rle["counts"]), "size": rle["size"]}
+    poly = [list(rng.uniform(0, min(h, w), 8)), list(rng.uniform(0, w, 4)),
+            [1.0, 1.0, float(w - 2), 3.0, float(w // 2), float(h - 2)]]
+    return mask, rle, packed, poly
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_coco_shim_matches(seed):
+    from improved_body_parts_tpu.data import coco_shim as jshim
+    from improved_body_parts_tpu_torch.data import coco_shim as shim
+    mask, rle, packed, poly = _shim_masks(seed)
+    assert shim.decode_rle_counts(packed["counts"]) == \
+        jshim.decode_rle_counts(packed["counts"]) == rle["counts"]
+    for r in (rle, packed):
+        got = shim.rle_to_mask(r, *mask.shape)
+        assert np.array_equal(got, jshim.rle_to_mask(r, *mask.shape))
+        assert np.array_equal(got, mask)
+    got = shim.polygons_to_mask(poly, *mask.shape)
+    assert np.array_equal(got, jshim.polygons_to_mask(poly, *mask.shape))
+    assert got.any()
+
+
+@pytest.fixture(scope="module")
+def mini_coco(tmp_path_factory):
+    """tests/test_builder_seam.py's on-disk mini-COCO (polygon people,
+    a crowd RLE region, people without keypoints)."""
+    from tests.test_builder_seam import _fabricate_mini_coco
+    root = str(tmp_path_factory.mktemp("mini_coco"))
+    _fabricate_mini_coco(root)
+    return root, os.path.join(root, "annotations", "person_keypoints_train2017.json")
+
+
+def test_mini_coco_lookups_match(mini_coco):
+    from improved_body_parts_tpu.data.coco_shim import MiniCOCO as JMiniCOCO
+    from improved_body_parts_tpu_torch.data.coco_shim import MiniCOCO
+    _, ann_file = mini_coco
+    mine, ref = MiniCOCO(ann_file), JMiniCOCO(ann_file)
+    assert mine.imgs == ref.imgs and mine.anns == ref.anns
+    assert mine.getAnnIds() == ref.getAnnIds()
+    for img_id in list(ref.imgs) + [99]:
+        ids = mine.getAnnIds(imgIds=img_id)
+        assert ids == ref.getAnnIds(imgIds=img_id) == ref.getAnnIds(imgIds=[img_id])
+        assert mine.loadAnns(ids) == ref.loadAnns(ids)
+        for ann in mine.loadAnns(ids):
+            assert np.array_equal(mine.annToMask(ann), ref.annToMask(ann))
+    assert mine.loadAnns(1) == ref.loadAnns(1)
+
+
+@pytest.mark.parametrize("v", [0, 1, 2])
+def test_encode_visibility_matches(v):
+    from improved_body_parts_tpu.data import build_records as jbr
+    from improved_body_parts_tpu_torch.data import build_records as br
+    assert br.encode_visibility(v) == jbr.encode_visibility(v)
+
+
+def _records_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert set(x) == set(y)
+        for k in x:
+            if isinstance(x[k], np.ndarray):
+                assert np.array_equal(x[k], y[k]), k
+            else:
+                assert x[k] == y[k], k
+
+
+def test_build_records_functions_match(mini_coco):
+    from improved_body_parts_tpu.data import build_records as jbr
+    from improved_body_parts_tpu.data.coco_shim import MiniCOCO as JMiniCOCO
+    from improved_body_parts_tpu_torch.data import build_records as br
+    from improved_body_parts_tpu_torch.data.coco_shim import MiniCOCO
+    _, ann_file = mini_coco
+    mine, ref = MiniCOCO(ann_file), JMiniCOCO(ann_file)
+    n_mains = 0
+    for idx, (img_id, meta) in enumerate(sorted(ref.imgs.items())):
+        anns = ref.loadAnns(ref.getAnnIds(imgIds=img_id))
+        persons = br.person_records(anns)
+        _records_equal(persons, jbr.person_records(anns))
+        mains = br.select_main_persons(persons)
+        want = jbr.select_main_persons(jbr.person_records(anns))
+        _records_equal(mains, want)
+        n_mains += len(mains)
+        for ds_type in ("COCO", "COCO_val"):
+            got = list(br.image_instances(meta, img_id, idx, anns, ds_type))
+            assert got == list(jbr.image_instances(meta, img_id, idx, anns, ds_type))
+        for a, b in zip(br.make_masks(mine, meta, anns), jbr.make_masks(ref, meta, anns)):
+            assert a.dtype == b.dtype == np.uint8 and np.array_equal(a, b)
+    assert n_mains == 3

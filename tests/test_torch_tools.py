@@ -9,7 +9,8 @@ tests/test_torch_predict.py (nstack 2, inp_dim 32) at 128² in fp32.
   * ``profile_postproc``: its stages compose to ``Predictor._postprocess``'s
     packed buffer exactly (the same operations on the same inputs).
   * ``bootstrap_ap``, ``make_synthetic_coco``: the JAX tool's output
-    exactly (the same seeds, the same evaluator and renderer).
+    exactly (the same seeds, the same evaluator and renderer; the PNGs
+    decode to the same pixels, their bytes differ as cv2 writes JAX's).
   * ``export_quantized``: the int8 parameters of JAX ``quantize_model`` on
     the same ``.pth`` and calibration batches at test_torch_quantize.py's
     tolerances (``w_scale`` and ``bias`` 1e-6 relative, ``a_scale`` 1e-5);
@@ -65,6 +66,7 @@ from improved_body_parts_tpu_torch.tools import (
     make_synthetic_coco, profile_postproc, stress_grouping,
 )
 from improved_body_parts_tpu_torch.utils import checkpoint as ckpt_lib
+from improved_body_parts_tpu_torch.utils import imageio
 from improved_body_parts_tpu_torch.utils.checkpoint import qstate_from_flax
 from tests.test_torch_predict import (  # noqa: F401  (autouse fixture)
     SIZE, _config, single_torch_thread,
@@ -200,9 +202,13 @@ def test_make_synthetic_coco_matches_jax(tmp_path):
     with open(tmp_path / "port" / "gt.json") as f, \
             open(tmp_path / "jax" / "gt.json") as g:
         assert json.load(f) == json.load(g)
+    # the port writes its PNGs with utils/imageio, the JAX tool with cv2: the
+    # files' bytes differ (filters, zlib level), the images they hold do not
     for name in os.listdir(tmp_path / "jax" / "images"):
-        assert (tmp_path / "port" / "images" / name).read_bytes() == \
-            (tmp_path / "jax" / "images" / name).read_bytes()
+        want = cv2.imread(str(tmp_path / "jax" / "images" / name))
+        got = tmp_path / "port" / "images" / name
+        assert np.array_equal(cv2.imread(str(got)), want)
+        assert np.array_equal(imageio.imread(got), want)
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +353,24 @@ def test_e2e_trained_smoke_matches_jax(run_dir, jax_predictor, monkeypatch, caps
     assert len(lines) == 1 and rc == (0 if "[OK]" in lines[0] else 1)
 
 
+def _assert_qstate_matches(got, want):
+    """The int8 weights equal, the scales and biases within 1e-5 (activation
+    scales) or 1e-6 (the rest) of each tensor's largest magnitude."""
+    assert set(got) == set(want)
+    n_q = 0
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k.endswith("weight_q"):
+            n_q += 1
+            assert torch.equal(g, w), k
+        else:
+            tol = 1e-5 if k.endswith("a_scale") else 1e-6
+            scale = float(w.float().abs().max())
+            assert float((g.float() - w.float()).abs().max()) <= tol * max(scale, 1e-30), k
+    assert n_q > 0
+
+
 def test_export_quantized_matches_jax_ptq(run_dir, tmp_path):
     path = ckpt_lib.checkpoint_path(os.path.join(run_dir, "pth"), 0)
     out = str(tmp_path / "int8.pth")
@@ -362,20 +386,7 @@ def test_export_quantized_matches_jax_ptq(run_dir, tmp_path):
     batches = [np.stack([ds[i][0] for i in range(b * 4, b * 4 + 4)])
                for b in range(2)]
     _, jq = jqz.quantize_model(jconfig.model, variables, batches, dtype=jnp.float32)
-    want = qstate_from_flax(jq["params"])
-    assert set(got) == set(want)
-    n_q = 0
-    for k, w in want.items():
-        g = got[k]
-        assert g.dtype == w.dtype and g.shape == w.shape, k
-        if k.endswith("weight_q"):
-            n_q += 1
-            assert torch.equal(g, w), k
-        else:
-            tol = 1e-5 if k.endswith("a_scale") else 1e-6
-            scale = float(w.float().abs().max())
-            assert float((g.float() - w.float()).abs().max()) <= tol * max(scale, 1e-30), k
-    assert n_q > 0
+    _assert_qstate_matches(got, qstate_from_flax(jq["params"]))
     # the file serves bit for bit as the in-process PTQ of the same weights
     config = _config()
     fp = _random_model(0)
@@ -390,3 +401,62 @@ def test_export_quantized_matches_jax_ptq(run_dir, tmp_path):
     b = Predictor(inproc, config, device=CPU)._run(imgs, hs, chws)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_export_quantized_calib_dir_matches_jax_tool(run_dir, tmp_path, monkeypatch):
+    """--calib-dir: the port's calibration batches equal, bit for bit, the
+    ones the repo's tools/export_quantized.py hands to quantize_model
+    (cv2.imread, cv2.resize's bilinear default, RGB in [0, 1], batches of
+    4; a subdirectory and a file cv2 cannot read are skipped), on PNGs of
+    odd sizes, an identity and an exact halving (cv2's area mean); and the
+    exported int8 file holds JAX quantize_model's tensors on them."""
+    import importlib
+    path = ckpt_lib.checkpoint_path(os.path.join(run_dir, "pth"), 0)
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    rs = np.random.RandomState(7)
+    for name, (h, w) in (("a.png", (128, 128)), ("b.png", (64, 64)),
+                         ("c.png", (50, 77)), ("e.png", (97, 33)),
+                         ("g.png", (70, 90))):
+        cv2.imwrite(str(calib / name), rs.randint(0, 256, (h, w, 3), np.uint8))
+    (calib / "d_sub").mkdir()
+    (calib / "f.txt").write_text("not an image")
+    # the JAX tool's own batches: its main, stopped at quantize_model (no
+    # persistent compilation cache: the tool enables one when imported)
+    monkeypatch.setenv("IBP_JAX_CACHE_DIR", "")
+    jexport = importlib.import_module("tools.export_quantized")
+    seen = {}
+
+    class Captured(Exception):
+        pass
+
+    def capture(model_cfg, variables, batches, **kw):
+        seen["batches"] = batches
+        raise Captured
+
+    monkeypatch.setattr(jqz, "quantize_model", capture)
+    monkeypatch.setattr(sys, "argv", [
+        "export_quantized", "--checkpoint", path, "--out", str(tmp_path / "jax"),
+        "--config", NAME, "--calib-dir", str(calib), "--calib-images", "7",
+        "--image-size", "64"])
+    with pytest.raises(Captured):
+        jexport.main()
+    monkeypatch.undo()
+    want = seen["batches"]
+    got = export_quantized.calibration_batches(_config(), 64, 7, str(calib))
+    assert [b.shape for b in want] == [(4, 64, 64, 3), (1, 64, 64, 3)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    # the exported file against JAX quantize_model on those batches (fp32)
+    out = str(tmp_path / "int8.pth")
+    assert export_quantized.main([
+        "--checkpoint", path, "--out", out, "--config", NAME, "--image-size", "64",
+        "--calib-dir", str(calib), "--calib-images", "7", "--dtype", "float32",
+        "--device", "cpu"]) == 0
+    jconfig = _config(jconfigs)
+    variables = load_for_inference(path, jimhn.create_model(jconfig.model,
+                                                            dtype=jnp.float32))
+    _, jq = jqz.quantize_model(jconfig.model, variables, want, dtype=jnp.float32)
+    _assert_qstate_matches(torch.load(out, weights_only=True)["weights"],
+                           qstate_from_flax(jq["params"]))
