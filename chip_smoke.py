@@ -10,8 +10,8 @@ against the CPU; served, bf16), and the port's evaluator and demo entry
 points on in-memory synthetic frames (the card's machine has no cv2); then
 trains: train steps of the full-width model at 512², batch 8, with the
 dense and the compact-u8 feed through the trainer's loader and staging
-(step time, images/s, peak memory, the profiler's busy share and top
-operations), one step with remat, a step of the tiny model on the card
+(step time, images/s, peak memory; for the dense feed the profiler's busy
+share and top operations), one step with remat, a step of the tiny model on the card
 against the CPU (fp32 with frozen BN, float64 in train mode), the
 abnormal-loss rollback, checkpoint resume, a trained
 checkpoint served through ``apps.evaluate.build_predictor``, and a falling
@@ -29,22 +29,24 @@ batch, and the int8 ``.pth`` served from the file; then training with the
 device-resident feed and the K-steps dispatch (phase 11): the resident
 preprocessing against the CPU, Canonical resident steps at 512², batch 8,
 eagerly (K = 1) and replayed from a CUDA graph of the captured step
-(K = 4), each with its step time, images/s, busy share, host launch calls
-and memory, graph against eager (bf16 train mode, and bit for bit in fp32
-with frozen BN), the rollback inside a replay, remat and the SWA graph on
+(K = 4), each with its step time, images/s and memory (the graph's busy
+share and host launch calls beside phase 8's eager step's), graph against
+eager (bf16 train mode, and bit for bit in fp32 with frozen BN), the rollback inside a replay, remat and the SWA graph on
 the graph, the dense feed on the graph through the loader, and
 ``apps.train --feed resident --steps-per-dispatch 4`` written and resumed;
 then multi-GPU on the card(s) there are (phase 12): ``predict_batch(mesh=)``
 on a mesh of the card and on one that lists it twice, against unsharded
 serving (fp32 packed buffers bit for bit, bf16 people and peaks) and
 ``PipelinedServer(mesh=)``'s frames/s; two gloo ranks sharing the card
-(``torch.multiprocessing``) with the resident store sharded over them,
-against one process at the whole batch (bf16 train-mode losses, fp32
+(``torch.multiprocessing``, at 256²) with the resident store sharded over
+them, against one process at the whole batch (bf16 train-mode losses, fp32
 frozen-BN parameters); one NCCL rank with its all-reduces captured in the
 CUDA graph of the K = 4 step, beside phase 11's graph step and bit for bit
 against eager; ``apps.train`` under ``torchrun --nproc-per-node 1``
-written and resumed; the dry run
-(``improved_body_parts_tpu_torch.tools.dryrun_multichip``) over the cards;
+written and resumed, and the dry run
+(``improved_body_parts_tpu_torch.tools.dryrun_multichip``) over the cards,
+both in processes of their own beside the gloo ranks and the NCCL
+rank's fp32 check;
 and the letterbox without cv2 on camera-sized frames (equal to a plain
 numpy version, timed) with 64 640x480 requests served; then the
 measurement and evaluation entry points (phase 13), each through the
@@ -101,9 +103,11 @@ TTA_REQUESTS = 32
 N_EVAL = 16
 TRAIN_BATCH = 8      # the README's JAX training row: batch 8, 512²
 TRAIN_WARM = 2
-TRAIN_TIMED = 6
-TRAIN_PROFILED = 3
+TRAIN_TIMED = 3
+TRAIN_PROFILED = 1
+TRAIN_DEVICE_RUNS = 2  # the step alone between CUDA events (median)
 LEARN_LR = 1e-2      # the raised learning rate of the falling-loss check
+LEARN_STEPS = 6      # its steps on one batch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 # fused_peaks' edge-case grid, held exactly against the plain version at the
 # main-path shape (B=8 x 18 maps of 128^2), a 1024^2 frame's 256^2 maps and
@@ -550,8 +554,9 @@ def _global_rel_err(a: dict, b: dict) -> float:
 def train_profile(step_fn, state, batch, lr, step_ms, smi):
     """torch.profiler over TRAIN_PROFILED steps on one staged batch: the
     card's busy time a step (its kernels' time), as a share of the step's
-    time between CUDA events without the profiler (``step_ms``), and the
-    five operators whose kernels took most device time."""
+    time between CUDA events without the profiler (``step_ms``), the host's
+    launch calls a step, and the five operators whose kernels took most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -567,6 +572,7 @@ def train_profile(step_fn, state, batch, lr, step_ms, smi):
                if e.device_type == DeviceType.CUDA) / 1e6
     kernels_a_step = sum(e.count for e in rows
                          if e.device_type == DeviceType.CUDA) / TRAIN_PROFILED
+    calls = sum(e.count for e in rows if e.key in LAUNCH_CALLS) / TRAIN_PROFILED
     ops = sorted((e for e in rows if e.device_type != DeviceType.CUDA
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:5]
@@ -576,17 +582,19 @@ def train_profile(step_fn, state, batch, lr, step_ms, smi):
     print(f"  profiler over {TRAIN_PROFILED} steps ({wall / TRAIN_PROFILED * 1e3:.1f} ms "
           f"a step while profiled): the card busy {busy_ms:.1f} ms a step, "
           f"{busy_ms / step_ms:.3f} of the {step_ms:.1f} ms step; "
-          f"{kernels_a_step:.0f} device kernels and copies a step; top operators "
+          f"{kernels_a_step:.0f} device kernels and copies a step, {calls:.0f} host "
+          f"launch calls a step; top operators "
           f"by device time a step: "
           + "; ".join(f"{k} {ms:.2f} ms ({n} calls)" for k, ms, n in top)
           + f" ({smi})", flush=True)
-    return busy_ms / step_ms, top
+    return busy_ms / step_ms, top, calls
 
 
-def train_feed_run(model, config, feed, device, smi):
+def train_feed_run(model, config, feed, device, smi, profiled: bool):
     """TRAIN_WARM + TRAIN_TIMED steps of the Canonical model at 512², batch
     8, bf16 compute, through PrefetchingLoader and the trainer's staging;
-    then the step alone on a staged batch (CUDA events) and a profile."""
+    then the step alone on a staged batch (CUDA events) and, if
+    ``profiled``, a profile."""
     from improved_body_parts_tpu_torch import train_lib
     from improved_body_parts_tpu_torch.parallel.mesh import staged_batches
     from improved_body_parts_tpu_torch.data.prefetch import PrefetchingLoader
@@ -618,13 +626,15 @@ def train_feed_run(model, config, feed, device, smi):
     if not torch.isfinite(losses).all():
         raise AssertionError(f"{feed}: non-finite training loss {losses.tolist()}")
     kept = batch
-    step_ms = device_ms(lambda: step(state, *kept, lr), runs=5)
-    busy, top = train_profile(step, state, kept, lr, step_ms, smi)
+    step_ms = device_ms(lambda: step(state, *kept, lr), runs=TRAIN_DEVICE_RUNS)
+    busy, top, calls = (train_profile(step, state, kept, lr, step_ms, smi)
+                        if profiled else (None, [], None))
     row = dict(feed=feed, e2e_ms=wall * 1e3, step_ms=step_ms,
                images_per_s=TRAIN_BATCH / step_ms * 1e3,
                e2e_images_per_s=TRAIN_BATCH / wall, peak_gib=peak, busy=busy,
-               top=[k for k, _, _ in top])
-    print(f"{feed}: {step_ms:.1f} ms a step alone (median of 5, CUDA events) = "
+               host_launches=calls, top=[k for k, _, _ in top])
+    print(f"{feed}: {step_ms:.1f} ms a step alone (median of {TRAIN_DEVICE_RUNS}, "
+          f"CUDA events) = "
           f"{row['images_per_s']:.1f} images/s; through the loader and staging "
           f"{wall * 1e3:.1f} ms a step = {row['e2e_images_per_s']:.1f} images/s; "
           f"peak {peak:.2f} GiB; losses {[round(x, 3) for x in losses.tolist()]} "
@@ -660,9 +670,11 @@ def _to(batch, device, dtype=None):
     return batch.to(device, dtype)
 
 
-def training(device, smi, config_name: str = "Canonical") -> None:
+def training(device, smi, init, config_name: str = "Canonical") -> dict:
     """Phase 8: the training path (train_lib, apps/train's staging, the
-    checkpoints) at the width of ``config_name``, and its checks."""
+    checkpoints) at the width of ``config_name``, from a copy of ``init``
+    (its reference init on the card), and its checks. Returns the dense
+    feed's row (its eager step's profile is phase 11's reference)."""
     import dataclasses
     import os
     import tempfile
@@ -678,14 +690,14 @@ def training(device, smi, config_name: str = "Canonical") -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     config = get_config(config_name)
-    g = torch.Generator().manual_seed(SEED)
-    model = PoseNet(config.model, compute_dtype=torch.bfloat16, generator=g).to(
-        device, memory_format=torch.channels_last)
+    model = copy.deepcopy(init)
 
     # -- steps: dense and compact-u8 feeds, then remat --------------------------
     rows = []
     for feed in ("dense", "compact-u8"):
-        row, state = train_feed_run(model, config, feed, device, smi)
+        # one profile: the feeds differ only in what the step renders first
+        row, state = train_feed_run(model, config, feed, device, smi,
+                                    profiled=feed == "dense")
         rows.append(row)
     remat_cfg = dataclasses.replace(config.model, remat=True)
     remat = PoseNet(remat_cfg, compute_dtype=torch.bfloat16, device="meta")
@@ -703,7 +715,7 @@ def training(device, smi, config_name: str = "Canonical") -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     remat_ms = device_ms(lambda: rstep(rstate, *batch, config.train.learning_rate),
-                         runs=3)
+                         runs=2)
     remat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"remat (each hourglass recomputed in the backward pass), compact-u8: "
           f"{remat_ms:.1f} ms a step, peak {remat_peak:.2f} GiB against "
@@ -731,8 +743,9 @@ def training(device, smi, config_name: str = "Canonical") -> None:
             state, config.train, epoch=0, train_loss=float(metrics["loss"])), step=0)
         mb = os.path.getsize(path) / 2 ** 20
         pred = build_predictor(path, config_name, device=device)
+        trained = model.state_dict()
         for k, v in pred.model.state_dict().items():
-            if not torch.equal(v.cpu(), model.state_dict()[k].cpu()):
+            if not torch.equal(v, trained[k]):
                 raise AssertionError(f"served weights differ from trained: {k}")
         frames = (batch[0].cpu().numpy())
         pred.predict_batch(frames, use_cpp=True)
@@ -754,11 +767,11 @@ def training(device, smi, config_name: str = "Canonical") -> None:
     lstep = train_lib.make_train_step(model, lcfg, compact_gt=True)
     lstate = train_lib.create_train_state(model, lcfg.train)
     losses = torch.stack([lstep(lstate, *batch, LEARN_LR)["loss"]
-                          for _ in range(10)]).cpu()
-    print(f"learning: 10 steps on one batch at lr {LEARN_LR}, clip 1: losses "
+                          for _ in range(LEARN_STEPS)]).cpu()
+    print(f"learning: {LEARN_STEPS} steps on one batch at lr {LEARN_LR}, clip 1: losses "
           f"{[round(x, 3) for x in losses.tolist()]}", flush=True)
     if not (torch.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError("the loss did not fall over 10 steps")
+        raise AssertionError(f"the loss did not fall over {LEARN_STEPS} steps")
     del lstate, state
     torch.cuda.empty_cache()
 
@@ -847,10 +860,12 @@ def training(device, smi, config_name: str = "Canonical") -> None:
         raise AssertionError("resumed training differs from training straight through")
 
     line = {r["feed"]: {k: r[k] for k in ("step_ms", "images_per_s", "e2e_ms",
-                                          "e2e_images_per_s", "peak_gib", "busy")}
+                                          "e2e_images_per_s", "peak_gib", "busy",
+                                          "host_launches")}
             for r in rows}
     line["remat"] = {"step_ms": remat_ms, "peak_gib": remat_peak}
     print(json.dumps({"training": line}), flush=True)
+    return rows[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1513,8 +1528,10 @@ def int8(model_cpu, config, frames, requests, device, smi, net_ms,
 # ---------------------------------------------------------------------------
 
 RESIDENT_RECORDS = 64
+APP_RECORDS = 16             # the store apps.train builds in phase 11
+FP32_STEPS = 2               # fp32 frozen-BN steps, graph against eager
 DISPATCH_K = 4
-RESIDENT_STEPS = 12          # 4 recorded from the start, then 8 timed
+RESIDENT_STEPS = 6           # 4 recorded from the start, then 2 timed
 GRAPH_TOL = 1e-5             # fp32 graph vs eager, if not bit-identical
 # the host's calls that start work on the card, counted by the profiler
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -1556,11 +1573,24 @@ def _state_equal(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k], b[k]) for k in b)
 
 
-def resident_and_dispatch(device, smi) -> dict:
+def _saved_step(pth_dir: str) -> dict:
+    """The newest checkpoint of ``save_train_state`` in ``pth_dir``, its
+    tensors memory-mapped, not read (for its ``step`` and ``epoch``)."""
+    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+
+    path = ckpt.checkpoint_path(pth_dir, ckpt.saved_steps(pth_dir)[-1])
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def resident_and_dispatch(device, smi, init, eager_profile: dict) -> tuple:
     """Phase 11: the device-resident feed and the K-steps dispatch, a CUDA
     graph of the captured train step, at Canonical 512², batch 8, bf16, on
-    a 64-record synthetic store with augmented plans; their checks against
-    eager steps, the shared memory pool, and ``apps.train`` with both."""
+    a 64-record synthetic store with augmented plans, from copies of
+    ``init`` (the reference init on the card); their checks against eager
+    steps, the shared memory pool, and ``apps.train`` with both. The graph's
+    profile is read beside phase 8's of the eager step (``eager_profile``,
+    its dense feed's row). Returns its JSON line and the host store (phase
+    12 (c) trains on it too)."""
     import dataclasses
     import os
     import tempfile
@@ -1574,7 +1604,6 @@ def resident_and_dispatch(device, smi) -> dict:
     from improved_body_parts_tpu_torch.models.imhn import PoseNet
     from improved_body_parts_tpu_torch.ops import kernels
     from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
-    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
 
     line = {}
     kernels.reset_launch_counts()
@@ -1616,9 +1645,6 @@ def resident_and_dispatch(device, smi) -> dict:
     def chunk(lo, hi):
         return [x[lo:hi] for x in stacked]
 
-    g = torch.Generator().manual_seed(SEED)
-    init = PoseNet(config.model, compute_dtype=torch.bfloat16, generator=g).to(
-        device, memory_format=torch.channels_last)
     pre_ms = device_ms(lambda: train_lib.resident_inputs(store, *plan(0)[:2], config),
                        runs=5)
 
@@ -1633,18 +1659,13 @@ def resident_and_dispatch(device, smi) -> dict:
                                    for k in range(4, RESIDENT_STEPS)],
                           RESIDENT_STEPS - 4)
     eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    eager_calls, eager_by, eager_busy = _launches_and_busy(
-        lambda: [step(state, store, *plan(k), lrs[k]) for k in range(2)], 2)
     print(f"resident K=1 eager: {eager_ms:.1f} ms a step (CUDA events over "
           f"{RESIDENT_STEPS - 4} steps) = {TRAIN_BATCH / eager_ms * 1e3:.1f} images/s; "
-          f"card busy {eager_busy:.1f} ms a step ({eager_busy / eager_ms:.3f}); "
-          f"{eager_calls:.0f} host launch calls a step; peak {eager_peak:.2f} GiB; "
-          f"the preprocessing alone {pre_ms:.3f} ms ({pre_ms / eager_busy:.4f} of "
-          f"the busy time) ({smi})", flush=True)
+          f"peak {eager_peak:.2f} GiB; the preprocessing alone {pre_ms:.3f} ms "
+          f"({pre_ms / eager_ms:.4f} of the step) ({smi})", flush=True)
     eager_losses = torch.stack(eager_losses).float().cpu()
     line["resident_k1_eager"] = dict(
         step_ms=eager_ms, images_per_s=TRAIN_BATCH / eager_ms * 1e3,
-        busy_ms=eager_busy, busy=eager_busy / eager_ms, host_launches=eager_calls,
         peak_gib=eager_peak, preprocess_ms=pre_ms)
     del model, state, step
     torch.cuda.empty_cache()
@@ -1666,7 +1687,7 @@ def resident_and_dispatch(device, smi) -> dict:
                           RESIDENT_STEPS - DISPATCH_K)
     graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     graph_calls, graph_by, graph_busy = _launches_and_busy(
-        lambda: multi(state, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K]), DISPATCH_K)
+        lambda: multi(state, store, *chunk(0, 1), lrs[:1]), 1)
     graph_losses = graph_losses.float().cpu()
     torch.cuda.empty_cache()
     one_reserved = torch.cuda.memory_reserved() / 2 ** 30
@@ -1677,7 +1698,8 @@ def resident_and_dispatch(device, smi) -> dict:
              else "not seen by the profiler inside the graph")
           + f"; {graph_calls:.1f} host launch calls a step "
           f"({', '.join(f'{k} {v:g}' for k, v in sorted(graph_by.items()))}) against "
-          f"{eager_calls:.0f} eager; peak {graph_peak:.2f} GiB allocated (warm-up "
+          f"{eager_profile['host_launches']:.0f} for phase 8's eager step (busy "
+          f"{eager_profile['busy']:.3f} of it); peak {graph_peak:.2f} GiB allocated (warm-up "
           f"and capture included), {one_reserved:.2f} GiB reserved after; capture "
           f"{capture_s:.2f} s (first call, warm-up and 4 replays included, "
           f"{first_s:.2f} s) ({smi})", flush=True)
@@ -1759,20 +1781,20 @@ def resident_and_dispatch(device, smi) -> dict:
         st = train_lib.create_train_state(m, config.train)
         if graphed:
             met = train_lib.make_multi_resident_train_step(m, config, freeze_bn=True)(
-                st, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K])
+                st, store, *chunk(0, FP32_STEPS), lrs[:FP32_STEPS])
         else:
             fstep = train_lib.make_resident_train_step(m, config, freeze_bn=True)
-            mets = [fstep(st, store, *plan(k), lrs[k]) for k in range(DISPATCH_K)]
+            mets = [fstep(st, store, *plan(k), lrs[k]) for k in range(FP32_STEPS)]
             met = {k: torch.stack([x[k] for x in mets]) for k in mets[0]}
-        runs.append(({k: v.cpu() for k, v in met.items()},
-                     {k: v.cpu() for k, v in _train_state_tensors(st).items()}))
+        runs.append((met, _train_state_tensors(st)))     # compared on the card
         del m, st, met
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
     (me, se), (mg, sg) = runs
     identical = _state_equal(sg, se) and all(torch.equal(mg[k], me[k]) for k in me)
     rel = _rel_err(sg, se)
-    print(f"fp32, frozen BN, {DISPATCH_K} steps from one state and one set of plans, "
+    print(f"fp32, frozen BN, {FP32_STEPS} steps (the graph captured for K="
+          f"{DISPATCH_K}) from one state and one set of plans, "
           f"graph against eager: {'bit-identical' if identical else 'not bit-identical'}"
           f" ({len(se)} tensors; largest relative difference {rel:.2e}, tolerance "
           f"{GRAPH_TOL}); losses {me['loss'].tolist()} / {mg['loss'].tolist()}",
@@ -1789,7 +1811,7 @@ def resident_and_dispatch(device, smi) -> dict:
     loader = PrefetchingLoader(SyntheticDataset(config, length=64,
                                                 image_size=config.height),
                                num_workers=6)
-    n_dense = 4 * DISPATCH_K
+    n_dense = DISPATCH_K + 2            # the capture chunk, then 2 timed steps
     with_lr = ((*b, np.asarray(config.train.learning_rate, np.float32))
                for b in loader.batches(TRAIN_BATCH, n_dense, seed=1))
     dense_losses = []
@@ -1821,29 +1843,33 @@ def resident_and_dispatch(device, smi) -> dict:
     # -- the trainer: --feed resident --steps-per-dispatch 4, write and resume --------
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--feed", "resident", "--resident-augment", "--steps-per-dispatch",
-                str(DISPATCH_K), "--epochs", "1", "--steps-per-epoch", "8",
-                "--batch-size", str(TRAIN_BATCH), "--synthetic-length",
-                str(RESIDENT_RECORDS), "--print-freq", "4", "-p", tmp]
+                str(DISPATCH_K), "--epochs", "1", "--steps-per-epoch",
+                str(DISPATCH_K), "--batch-size", str(TRAIN_BATCH),
+                "--synthetic-length", str(APP_RECORDS), "--print-freq", "4",
+                "-p", tmp]
         t0 = time.perf_counter()
         if train_app.main(argv) != 0:
             raise AssertionError("apps.train --feed resident failed")
-        first = ckpt.restore_train_state(os.path.join(tmp, "pth"))
+        first = _saved_step(os.path.join(tmp, "pth"))
         argv[argv.index("--epochs") + 1] = "2"
         if train_app.main(argv + ["-r"]) != 0:
             raise AssertionError("apps.train -r failed")
-        resumed = ckpt.restore_train_state(os.path.join(tmp, "pth"))
-        if (first["step"], resumed["step"], resumed["epoch"]) != (8, 16, 1):
+        resumed = _saved_step(os.path.join(tmp, "pth"))
+        if (first["step"], resumed["step"], resumed["epoch"]) != (
+                DISPATCH_K, 2 * DISPATCH_K, 1):
             raise AssertionError(f"the trainer's checkpoints: steps {first['step']}, "
                                  f"{resumed['step']}, epoch {resumed['epoch']}")
-        print(f"apps.train --feed resident --resident-augment --steps-per-dispatch "
-              f"{DISPATCH_K}: epoch 0 (8 steps) written, resumed with -r for epoch 1 "
-              f"(step {resumed['step']}), in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"apps.train --feed resident (Canonical 512²) "
+              f"--resident-augment --steps-per-dispatch {DISPATCH_K}, a "
+              f"{APP_RECORDS}-record store: epoch 0 ({DISPATCH_K} "
+              f"steps) written, resumed with -r for epoch 1 (step "
+              f"{resumed['step']}), in {time.perf_counter() - t0:.1f} s", flush=True)
     line["hand_kernel_launches"] = {k: getattr(kernels, k).launches
                                     for k in ("nms", "fused_peaks", "int8_quantize",
                                               "int8_conv")}
     if any(line["hand_kernel_launches"].values()):
         raise AssertionError("the training path launched a serving kernel")
-    return line
+    return line, store_h
 
 
 # ---------------------------------------------------------------------------
@@ -1852,6 +1878,8 @@ def resident_and_dispatch(device, smi) -> dict:
 # ---------------------------------------------------------------------------
 
 LETTERBOX_FRAMES = ((1080, 1920), (480, 640), (1000, 300))   # (h, w)
+GLOO_SIZE = 256        # phase 12 (b)'s images: two gloo ranks share the card
+GLOO_STEPS = 2         # and its steps a BN mode
 
 
 def mesh_serving(model, config, frames, requests, device, smi) -> dict:
@@ -2039,44 +2067,169 @@ def letterbox_and_serve(model, config, frames, device, smi) -> dict:
     return line
 
 
-def multi_gpu(model, config, frames, requests, device, smi, graph_ms: float) -> dict:
-    """Phase 12: (a) mesh serving, (b) two gloo ranks on the one card
-    against one process, (c) one NCCL rank, K = 4 on the CUDA graph,
-    (d) apps.train under torchrun, (e) the dry run, (f) the letterbox."""
-    import gc
+def _torchrun_train(ports) -> tuple:
+    """Phase 12 (d): ``apps.train`` under ``torchrun --nproc-per-node 1``
+    (tiny, 128²), written, then resumed with ``-r``, on the two ``ports``:
+    (line, message)."""
     import os
     import tempfile
+
+    from improved_body_parts_tpu_torch.tools import multi_card
+    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+               "--master-port", str(ports[0]), "-m",
+               "improved_body_parts_tpu_torch.apps.train", "--tiny-model",
+               "--image-size", "128", "--batch-size", "4", "--feed", "resident",
+               "--resident-augment", "--resident-shard-store", "--steps-per-dispatch",
+               str(DISPATCH_K), "--epochs", "1", "--steps-per-epoch", "4",
+               "--synthetic-length", "8", "--print-freq", "4", "-p", tmp]
+        t0 = time.perf_counter()
+        out = multi_card.run_tree(cmd, 300, "torchrun apps.train")
+        if "rank 0 of 1 (nccl)" not in out:
+            raise AssertionError("apps.train under torchrun did not join NCCL")
+        written = ckpt.restore_train_state(os.path.join(tmp, "pth"))
+        cmd[cmd.index("--epochs") + 1] = "2"
+        cmd[cmd.index("--master-port") + 1] = str(ports[1])
+        multi_card.run_tree(cmd + ["-r"], 300, "torchrun apps.train -r")
+        resumed = ckpt.restore_train_state(os.path.join(tmp, "pth"))
+        if (written["step"], resumed["step"], resumed["epoch"]) != (4, 8, 1):
+            raise AssertionError(f"torchrun checkpoints: steps {written['step']}, "
+                                 f"{resumed['step']}, epoch {resumed['epoch']}")
+        tr_s = time.perf_counter() - t0
+    return (dict(written_step=4, resumed_step=8, seconds=tr_s),
+            f"torchrun --nproc-per-node 1 apps.train --feed resident "
+            f"--resident-shard-store --steps-per-dispatch {DISPATCH_K} (tiny model, "
+            f"128²): epoch 0 written (step 4), resumed with -r (step 8), in "
+            f"{tr_s:.1f} s, two launches (beside (b) and (e))")
+
+
+def _dry_run(n: int, port: int) -> tuple:
+    """Phase 12 (e): ``tools/dryrun_multichip`` over the ``n`` cards in a
+    process of its own, its ranks' rendezvous on ``port``: (line, its
+    result line)."""
+    from improved_body_parts_tpu_torch.tools import multi_card
+
+    t0 = time.perf_counter()
+    out = multi_card.run_tree(
+        [sys.executable, "-m", "improved_body_parts_tpu_torch.tools.dryrun_multichip",
+         str(n), "--port", str(port)], 600, "dryrun_multichip")
+    ok = [ln for ln in out.splitlines() if "dryrun_multichip(" in ln]
+    return (dict(n=n, rc=0, seconds=time.perf_counter() - t0),
+            (ok[-1] if ok else out[-2000:]) + " (beside (b) and (d))")
+
+
+def multi_gpu(model, config, frames, requests, device, smi, graph_ms: float,
+              init, store_h) -> dict:
+    """Phase 12: (a) mesh serving, (b) two gloo ranks on the one card
+    against one process (at GLOO_SIZE²), (c) one NCCL rank, K = 4 on the
+    CUDA graph, from copies of ``init`` (the reference init on the card)
+    on phase 11's 64-record store ``store_h``,
+    (d) apps.train under torchrun, (e) the dry run (both beside (b) and
+    (c)'s fp32 check), (f) the letterbox."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
 
     from improved_body_parts_tpu_torch import train_lib
     from improved_body_parts_tpu_torch.parallel import mesh as mesh_lib
     from improved_body_parts_tpu_torch.tools import multi_card
-    from improved_body_parts_tpu_torch.tools.dryrun_multichip import free_port
-    from improved_body_parts_tpu_torch.utils import checkpoint as ckpt
+    from improved_body_parts_tpu_torch.tools.dryrun_multichip import distinct_ports
 
     line = {"card": smi, "cards_visible": torch.cuda.device_count()}
     print("-- (a) serving on the mesh", flush=True)
     line["mesh_serving"] = mesh_serving(model, config, frames, requests, device, smi)
 
-    print("-- (b) two ranks on the one card over gloo, against one process", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()        # the card's memory for the two ranks
-    line["gloo_two_ranks"] = multi_card.agreement(2, TRAIN_BATCH // 2, True, device,
-                                                  smi)
+    # (d) and (e) run processes of their own on tiny models, beside (b),
+    # whose two ranks mostly wait on gloo, and beside (c)'s fp32 graph =
+    # eager check (deterministic cuDNN with heuristic algorithm choice, and
+    # the card's memory two-thirds free: no load changes its bits). So (b)'s
+    # times are taken under their load; (a)'s, (c)'s and (f)'s alone, after
+    # both have ended. Every port is picked here, before any launch starts.
+    from improved_body_parts_tpu_torch.configs import get_config
 
-    print("-- (c) one rank over NCCL, K=4 on the CUDA graph", flush=True)
-    cfg, init = multi_card.setup(device)
-    store_h = multi_card.build_store(cfg)
-    store = store_h.device_arrays(device)
-    dev = mesh_lib.initialize_multihost(f"localhost:{free_port()}", 1, 0)
-    mesh = mesh_lib.make_mesh()
-    rplans = multi_card.make_plans(store_h, cfg, TRAIN_BATCH, RESIDENT_STEPS, 0, 1, 1)
-    stacked = [torch.from_numpy(np.stack([p[i] for p in rplans])).to(dev)
-               for i in range(3)]
-    lrs = torch.full((RESIDENT_STEPS,), cfg.train.learning_rate, device=dev)
+    n = torch.cuda.device_count()
+    gloo_port, dry_port, nccl_port, *run_ports = distinct_ports(5)
+    with ThreadPoolExecutor(2) as pool:
+        torchrun_future = pool.submit(_torchrun_train, run_ports)
+        dryrun_future = pool.submit(_dry_run, n, dry_port)
+        print("-- (b) two ranks on the one card over gloo, against one process "
+              "(beside (d) and (e): its times are taken under their load)",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()        # the card's memory for the two ranks
+        line["gloo_two_ranks"] = multi_card.agreement(
+            2, TRAIN_BATCH // 2, True, device, smi, image_size=GLOO_SIZE,
+            steps=GLOO_STEPS, port=gloo_port)
+        line["gloo_two_ranks"]["timed_beside"] = ["(d) torchrun apps.train",
+                                                  "(e) dryrun_multichip"]
 
-    def chunk(lo, hi):
-        return [x[lo:hi] for x in stacked]
+        print("-- (c) one rank over NCCL: fp32 frozen BN, graph against eager "
+              "(beside (d) and (e))", flush=True)
+        cfg = get_config("Canonical")
+        store = store_h.device_arrays(device)
+        dev = mesh_lib.initialize_multihost(f"localhost:{nccl_port}", 1, 0)
+        mesh = mesh_lib.make_mesh()
+        rplans = multi_card.make_plans(store_h, cfg, TRAIN_BATCH, RESIDENT_STEPS,
+                                       0, 1, 1)
+        stacked = [torch.from_numpy(np.stack([p[i] for p in rplans])).to(dev)
+                   for i in range(3)]
+        lrs = torch.full((RESIDENT_STEPS,), cfg.train.learning_rate, device=dev)
 
+        def chunk(lo, hi):
+            return [x[lo:hi] for x in stacked]
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        runs, free_gib, peak_gib = [], [], []
+        for graphed in (False, True):
+            free_gib.append(torch.cuda.mem_get_info(device)[0] / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
+            m = copy.deepcopy(init)
+            m.compute_dtype = torch.float32
+            st = train_lib.create_train_state(m, cfg.train)
+            if graphed:
+                met = train_lib.make_multi_resident_train_step(
+                    m, cfg, freeze_bn=True, mesh=mesh)(st, store, *chunk(0, FP32_STEPS),
+                                                       lrs[:FP32_STEPS])
+            else:
+                fstep = train_lib.make_resident_train_step(m, cfg, freeze_bn=True,
+                                                           mesh=mesh)
+                mets = [fstep(st, store, *[x[k] for x in stacked], lrs[k])
+                        for k in range(FP32_STEPS)]
+                met = {k: torch.stack([x[k] for x in mets]) for k in mets[0]}
+            runs.append((met, _train_state_tensors(st)))  # compared on the card
+            peak_gib.append(torch.cuda.max_memory_reserved() / 2 ** 30)
+            del m, st, met
+            mets = fstep = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        (me, se), (mg, sg) = runs
+        identical = _state_equal(sg, se) and all(torch.equal(mg[k], me[k]) for k in me)
+        n_diff = sum(not torch.equal(sg[k], se[k]) for k in se)
+        print(f"1 NCCL rank, fp32 frozen BN, {FP32_STEPS} steps, graph against eager: "
+              f"{'bit-identical' if identical else 'NOT bit-identical'} ({n_diff} of "
+              f"{len(se)} tensors differ; largest relative difference "
+              f"{_rel_err(sg, se):.2e}; losses equal by step "
+              f"{[bool(x) for x in (mg['loss'] == me['loss'])]}; card memory free "
+              f"before eager/graph {free_gib[0]:.2f}/{free_gib[1]:.2f} GiB, peak "
+              f"reserved {peak_gib[0]:.2f}/{peak_gib[1]:.2f} GiB, (d) and (e) "
+              f"running)", flush=True)
+        if not identical:
+            raise AssertionError("the data-parallel graph differs from eager steps")
+        del runs
+        torchrun_result = torchrun_future.result()
+        dryrun_result = dryrun_future.result()
+    print("-- (d) apps.train under torchrun --nproc-per-node 1", flush=True)
+    line["torchrun_train"], msg = torchrun_result
+    print(msg, flush=True)
+    print(f"-- (e) the dry run over {n} card(s)", flush=True)
+    line["dryrun"], msg = dryrun_result
+    print(msg, flush=True)
+
+    print("-- (c) one rank over NCCL, K=4 on the CUDA graph (alone)", flush=True)
     m = copy.deepcopy(init)
     st = train_lib.create_train_state(m, cfg.train)
     multi = train_lib.make_multi_resident_train_step(m, cfg, mesh=mesh)
@@ -2086,7 +2239,7 @@ def multi_gpu(model, config, frames, requests, device, smi, graph_ms: float) -> 
                                 for lo in range(DISPATCH_K, RESIDENT_STEPS, DISPATCH_K)],
                        RESIDENT_STEPS - DISPATCH_K)
     calls, by, busy = _launches_and_busy(
-        lambda: multi(st, store, *chunk(0, DISPATCH_K), lrs[:DISPATCH_K]), DISPATCH_K)
+        lambda: multi(st, store, *chunk(0, 1), lrs[:1]), 1)
     first = first.float().cpu()
     if multi.graphed is None or not torch.isfinite(first).all():
         raise AssertionError("the data-parallel step was not captured, or diverged")
@@ -2099,95 +2252,13 @@ def multi_gpu(model, config, frames, requests, device, smi, graph_ms: float) -> 
           f"{[round(x, 6) for x in first.tolist()]} ({smi})", flush=True)
     line["nccl_one_rank_graph"] = dict(step_ms=dp_ms, phase11_graph_ms=graph_ms,
                                        ratio=dp_ms / graph_ms, host_launches=calls,
-                                       busy_ms=busy, losses=first.tolist())
+                                       busy_ms=busy, losses=first.tolist(),
+                                       fp32_frozen_graph_vs_eager_identical=identical)
     del m, st, multi
-    # nothing of the bf16 graph may stay: under memory pressure cuDNN drops a
-    # cached plan that cannot get its workspace and takes another, whose
-    # sums round differently
+    torch.distributed.destroy_process_group()
+    del store, init
     gc.collect()
     torch.cuda.empty_cache()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    runs, free_gib, peak_gib = [], [], []
-    for graphed in (False, True):
-        free_gib.append(torch.cuda.mem_get_info(device)[0] / 2 ** 30)
-        torch.cuda.reset_peak_memory_stats()
-        m = copy.deepcopy(init)
-        m.compute_dtype = torch.float32
-        st = train_lib.create_train_state(m, cfg.train)
-        if graphed:
-            met = train_lib.make_multi_resident_train_step(
-                m, cfg, freeze_bn=True, mesh=mesh)(st, store, *chunk(0, DISPATCH_K),
-                                                   lrs[:DISPATCH_K])
-        else:
-            fstep = train_lib.make_resident_train_step(m, cfg, freeze_bn=True,
-                                                       mesh=mesh)
-            mets = [fstep(st, store, *[x[k] for x in stacked], lrs[k])
-                    for k in range(DISPATCH_K)]
-            met = {k: torch.stack([x[k] for x in mets]) for k in mets[0]}
-        runs.append(({k: v.cpu() for k, v in met.items()},
-                     {k: v.cpu() for k, v in _train_state_tensors(st).items()}))
-        peak_gib.append(torch.cuda.max_memory_reserved() / 2 ** 30)
-        del m, st, met
-        mets = fstep = None
-        gc.collect()
-        torch.cuda.empty_cache()
-    torch.backends.cudnn.deterministic = False
-    (me, se), (mg, sg) = runs
-    identical = _state_equal(sg, se) and all(torch.equal(mg[k], me[k]) for k in me)
-    n_diff = sum(not torch.equal(sg[k], se[k]) for k in se)
-    print(f"1 NCCL rank, fp32 frozen BN, {DISPATCH_K} steps, graph against eager: "
-          f"{'bit-identical' if identical else 'NOT bit-identical'} ({n_diff} of "
-          f"{len(se)} tensors differ; largest relative difference "
-          f"{_rel_err(sg, se):.2e}; losses equal by step "
-          f"{[bool(x) for x in (mg['loss'] == me['loss'])]}; card memory free "
-          f"before eager/graph {free_gib[0]:.2f}/{free_gib[1]:.2f} GiB, peak "
-          f"reserved {peak_gib[0]:.2f}/{peak_gib[1]:.2f} GiB)", flush=True)
-    if not identical:
-        raise AssertionError("the data-parallel graph differs from eager steps")
-    line["nccl_one_rank_graph"]["fp32_frozen_graph_vs_eager_identical"] = identical
-    torch.distributed.destroy_process_group()
-    del runs, store, init
-    torch.cuda.empty_cache()
-
-    print("-- (d) apps.train under torchrun --nproc-per-node 1", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
-               "--master-port", str(free_port()), "-m",
-               "improved_body_parts_tpu_torch.apps.train", "--tiny-model",
-               "--image-size", "128", "--batch-size", "4", "--feed", "resident",
-               "--resident-augment", "--resident-shard-store", "--steps-per-dispatch",
-               str(DISPATCH_K), "--epochs", "1", "--steps-per-epoch", "4",
-               "--synthetic-length", "8", "--print-freq", "4", "-p", tmp]
-        t0 = time.perf_counter()
-        out = multi_card.run_tree(cmd, 300, "torchrun apps.train")
-        if "rank 0 of 1 (nccl)" not in out:
-            raise AssertionError("apps.train under torchrun did not join NCCL")
-        written = ckpt.restore_train_state(os.path.join(tmp, "pth"))
-        cmd[cmd.index("--epochs") + 1] = "2"
-        cmd[cmd.index("--master-port") + 1] = str(free_port())
-        multi_card.run_tree(cmd + ["-r"], 300, "torchrun apps.train -r")
-        resumed = ckpt.restore_train_state(os.path.join(tmp, "pth"))
-        if (written["step"], resumed["step"], resumed["epoch"]) != (4, 8, 1):
-            raise AssertionError(f"torchrun checkpoints: steps {written['step']}, "
-                                 f"{resumed['step']}, epoch {resumed['epoch']}")
-        tr_s = time.perf_counter() - t0
-    print(f"torchrun --nproc-per-node 1 apps.train --feed resident "
-          f"--resident-shard-store --steps-per-dispatch {DISPATCH_K} (tiny model, "
-          f"128²): epoch 0 written (step 4), resumed with -r (step 8), in "
-          f"{tr_s:.1f} s, two launches", flush=True)
-    line["torchrun_train"] = dict(written_step=4, resumed_step=8, seconds=tr_s)
-
-    n = torch.cuda.device_count()
-    print(f"-- (e) the dry run over {n} card(s)", flush=True)
-    t0 = time.perf_counter()
-    out = multi_card.run_tree(
-        [sys.executable, "-m", "improved_body_parts_tpu_torch.tools.dryrun_multichip",
-         str(n)], 600, "dryrun_multichip")
-    ok = [ln for ln in out.splitlines() if "dryrun_multichip(" in ln]
-    print(ok[-1] if ok else out[-2000:], flush=True)
-    line["dryrun"] = dict(n=n, rc=0, seconds=time.perf_counter() - t0)
 
     print("-- (f) the letterbox without cv2", flush=True)
     line["letterbox"] = letterbox_and_serve(model, config, frames, device, smi)
@@ -2830,7 +2901,11 @@ def main() -> int:
 
     # -- 8: training ------------------------------------------------------------------
     phase(f"8 training, Canonical 512², batch {TRAIN_BATCH}")
-    training(device, smi)
+    # the reference init that phases 8, 11 and 12 copy
+    ref_init = PoseNet(config.model, compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED)).to(
+        device, memory_format=torch.channels_last)
+    dense_profile = training(device, smi, ref_init)
 
     # -- 9: the model variants -----------------------------------------------------------
     phase("9 variants: FinalAttention and Independent served, AEPoseNet trained, "
@@ -2847,7 +2922,8 @@ def main() -> int:
     # -- 11: the resident feed and the K-steps dispatch --------------------------------
     phase(f"11 resident feed and multi-step dispatch: Canonical 512², batch "
           f"{TRAIN_BATCH}, K={DISPATCH_K} on a CUDA graph")
-    resident_line = resident_and_dispatch(device, smi)
+    resident_line, resident_store = resident_and_dispatch(device, smi, ref_init,
+                                                          dense_profile)
     print(json.dumps({"resident_and_dispatch": resident_line}), flush=True)
 
     # -- 12: multi-GPU and the letterbox without cv2 ------------------------------------
@@ -2855,7 +2931,9 @@ def main() -> int:
           f"torchrun, the dry run; the letterbox without cv2")
     kernels.reset_launch_counts()
     mg_line = multi_gpu(model, config, frames, requests, device, smi,
-                        resident_line[f"resident_k{DISPATCH_K}_graph"]["step_ms"])
+                        resident_line[f"resident_k{DISPATCH_K}_graph"]["step_ms"],
+                        ref_init, resident_store)
+    del ref_init
     print(json.dumps({"multi_gpu": mg_line}), flush=True)
 
     # -- 13: the measurement and evaluation entry points --------------------------------

@@ -17,7 +17,8 @@ int8 serving) and builds every model variant of the JAX package
 ``AEPoseNet``). Its measurement and evaluation entry points (the e2e
 benchmark, network-only speed with MFU, the post-processing and train-step
 profiles, crowd grouping, the int8 export, the AP curve and the
-trained-checkpoint smoke) run on the card too.
+trained-checkpoint smoke) run on the card too, and ``tools/metric_level``
+trains ``Canonical`` with the JAX package's recipe and scores it there.
 
 The JAX package beside it is the reference this port is held against. This
 package imports ``torch`` and never ``jax``, and nothing of the JAX package:

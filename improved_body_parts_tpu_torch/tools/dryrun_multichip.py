@@ -58,9 +58,20 @@ LR = 1e-4
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    return distinct_ports(1)[0]
+
+
+def distinct_ports(n: int) -> list:
+    """``n`` free ports, all bound at once while they are picked, so that
+    no two are the same (for launches that will run side by side)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 def _log(rank: int, t0: float, what: str) -> None:
@@ -280,8 +291,10 @@ def _entry(rank, world, port, device_kind, ckpt_dir, hang_s):
         os._exit(1)          # no rank carries on alone
 
 
-def run(n: int, device_kind: str = "cuda", timeout: float = 600.0) -> int:
-    """Start ``n`` ranks and wait; 0 when every rank passed."""
+def run(n: int, device_kind: str = "cuda", timeout: float = 600.0,
+        port: int = 0) -> int:
+    """Start ``n`` ranks (their rendezvous on ``port``, a free one if 0)
+    and wait; 0 when every rank passed."""
     if device_kind != "cpu":
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n > cards:
@@ -290,7 +303,7 @@ def run(n: int, device_kind: str = "cuda", timeout: float = 600.0) -> int:
                   file=sys.stderr)
             return 2
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        ctx = mp.start_processes(_entry, args=(n, free_port(), device_kind,
+        ctx = mp.start_processes(_entry, args=(n, port or free_port(), device_kind,
                                                ckpt_dir, max(timeout - 15.0, 1.0)),
                                  nprocs=n, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
@@ -315,8 +328,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cpu: gloo ranks on the CPU; cuda: NCCL, a card a rank")
     parser.add_argument("--timeout", type=float, default=600.0)
+    parser.add_argument("--port", type=int, default=0,
+                        help="the ranks' rendezvous port (0: a free one)")
     args = parser.parse_args(argv)
-    return run(args.n, args.device, args.timeout)
+    return run(args.n, args.device, args.timeout, args.port)
 
 
 if __name__ == "__main__":

@@ -94,12 +94,16 @@ def card_line() -> str:
                           capture_output=True, text=True).stdout.splitlines()[0]
 
 
-def setup(device):
-    """Canonical, and its reference init from SEED on ``device`` (bf16
-    convs, channels_last)."""
+def setup(device, image_size: int = 0):
+    """Canonical (at ``image_size``² when given), and its reference init
+    from SEED on ``device`` (bf16 convs, channels_last)."""
+    import dataclasses
+
     from improved_body_parts_tpu_torch.configs import get_config
     from improved_body_parts_tpu_torch.models.imhn import PoseNet
     config = get_config("Canonical")
+    if image_size:
+        config = dataclasses.replace(config, width=image_size, height=image_size)
     g = torch.Generator().manual_seed(SEED)
     init = PoseNet(config.model, compute_dtype=torch.bfloat16, generator=g).to(
         device, memory_format=torch.channels_last)
@@ -179,7 +183,7 @@ def rank_main(rank: int, world: int, port: int, tmp: str, spec: dict) -> None:
     mesh = mesh_lib.make_mesh()
     with open(os.path.join(tmp, "store.pkl"), "rb") as f:
         store_h = pickle.load(f)
-    config, init = setup(device)
+    config, init = setup(device, spec.get("image_size", 0))
     store = store_h.device_arrays(device, shard=(rank, world))
     out = {}
     for mode in spec["modes"]:
@@ -326,14 +330,16 @@ def _entry(rank, world, port, tmp, spec):
         os._exit(1)             # no rank carries on alone
 
 
-def run_ranks(world: int, store_h, spec: dict, timeout: float = 900.0) -> list:
-    """Spawn ``world`` ranks of ``rank_main``; every rank's output, or
-    raise (every rank killed) when one fails or the time runs out."""
+def run_ranks(world: int, store_h, spec: dict, timeout: float = 900.0,
+              port: int = 0) -> list:
+    """Spawn ``world`` ranks of ``rank_main`` (their rendezvous on
+    ``port``, a free one if 0); every rank's output, or raise (every rank
+    killed) when one fails or the time runs out."""
     from improved_body_parts_tpu_torch.tools.dryrun_multichip import free_port
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "store.pkl"), "wb") as f:
             pickle.dump(store_h, f)
-        ctx = mp.start_processes(_entry, args=(world, free_port(), tmp, spec),
+        ctx = mp.start_processes(_entry, args=(world, port or free_port(), tmp, spec),
                                  nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:
@@ -351,25 +357,27 @@ def run_ranks(world: int, store_h, spec: dict, timeout: float = 900.0) -> list:
     return outs
 
 
-def agreement(world: int, batch: int, share_card: bool, device, smi: str) -> dict:
+def agreement(world: int, batch: int, share_card: bool, device, smi: str,
+              image_size: int = 0, steps: int = STEPS, port: int = 0) -> dict:
     """``world`` ranks (NCCL a card each; gloo sharing cuda:0 with
     ``share_card``) at ``batch`` a rank against one process at the global
-    batch on ``device``: STEPS bf16 train-mode and fp32 frozen-BN steps
-    from one init and one set of plans."""
+    batch on ``device``: ``steps`` bf16 train-mode and fp32 frozen-BN steps
+    from one init and one set of plans, at ``image_size``² (Canonical's
+    512² when 0), the ranks' rendezvous on ``port`` (a free one if 0)."""
     backend = "gloo" if share_card else "nccl"
     torch.cuda.empty_cache()
-    config, init = setup(device)
+    config, init = setup(device, image_size)
     store_h = build_store(config)
     t0 = time.perf_counter()
     outs = run_ranks(world, store_h, dict(
-        backend=backend, share_card=share_card, batch=batch, steps=STEPS,
-        modes=("bf16_train", "fp32_frozen")))
+        backend=backend, share_card=share_card, batch=batch, steps=steps,
+        modes=("bf16_train", "fp32_frozen"), image_size=image_size), port=port)
     ranks_s = time.perf_counter() - t0
     # one process: the same plans, their record indices made global
     glob = batch * world
     n_local = len(store_h) // world
     plans = [(p[0] + (np.arange(glob) // batch) * n_local, *p[1:])
-             for p in make_plans(store_h, config, glob, STEPS, 0, 1, world)]
+             for p in make_plans(store_h, config, glob, steps, 0, 1, world)]
     store = store_h.device_arrays(device)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = False
@@ -386,8 +394,8 @@ def agreement(world: int, batch: int, share_card: bool, device, smi: str) -> dic
         if not torch.isfinite(a).all():
             raise AssertionError(f"{mode}: non-finite loss on the ranks")
         rel = ((a - losses).abs() / losses.abs()).tolist()
-        print(f"{mode}, {STEPS} steps, {world} {backend} ranks x {batch} (sharded "
-              f"store) / one process x {glob}: losses "
+        print(f"{mode}, {steps} steps, {world} {backend} ranks x {batch} (sharded "
+              f"store) / one process x {glob} at {config.height}²: losses "
               + "; ".join(f"{x:.6f} / {y:.6f}" for x, y in zip(a.tolist(),
                                                               losses.tolist()))
               + f"; relative differences {[f'{r:.2e}' for r in rel]}; "
@@ -399,7 +407,7 @@ def agreement(world: int, batch: int, share_card: bool, device, smi: str) -> dic
         if frozen:
             diff, move = _max_diff_and_move(outs[0]["params"], {
                 k: p.detach().cpu() for k, p in state.model.named_parameters()}, init)
-            print(f"fp32 frozen BN after {STEPS} steps: parameters of the {world} "
+            print(f"fp32 frozen BN after {steps} steps: parameters of the {world} "
                   f"ranks against one process, largest difference {diff:.3e} "
                   f"against a largest move of {move:.3e} (tolerance {FROZEN_TOL} "
                   f"x the move); the ranks ran in {ranks_s:.1f} s, start-up "
