@@ -62,7 +62,8 @@ scoring; then the ``spatial`` mesh axis (phase 14): the full-width
 gloo ranks sharing the card (data 1 × spatial 2, halos exchanged around
 every conv), against one process on the same global batch of 2 (fp32
 frozen-BN parameters and losses, bf16 train-mode losses), with its ms a
-step, peak GiB a rank and halo exchanges a step; last, image files and the
+step, peak GiB a rank and halo exchanges a step, and the gloo reason its
+K-steps dispatch runs eagerly; last, image files and the
 remaining tools (phase 15): a synthetic set written as PNG and read back
 through the port's own codec (``utils/imageio``, no cv2), bit for bit,
 ``apps.evaluate.main`` on that directory against the in-memory frames,
@@ -560,6 +561,7 @@ def train_profile(step_fn, state, batch, lr, step_ms, smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from improved_body_parts_tpu_torch.utils.profiling import LAUNCH_CALLS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1533,10 +1535,6 @@ FP32_STEPS = 2               # fp32 frozen-BN steps, graph against eager
 DISPATCH_K = 4
 RESIDENT_STEPS = 6           # 4 recorded from the start, then 2 timed
 GRAPH_TOL = 1e-5             # fp32 graph vs eager, if not bit-identical
-# the host's calls that start work on the card, counted by the profiler
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
-                "cudaMemsetAsync")
 
 
 def _events_ms(run, n_steps: int) -> float:
@@ -1553,20 +1551,10 @@ def _events_ms(run, n_steps: int) -> float:
 
 
 def _launches_and_busy(run, n_steps: int):
-    """torch.profiler over ``run()``: the host's launch calls a step (by
-    name) and the card's busy ms a step (its kernels' and copies' time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    rows = prof.key_averages()
-    calls = {e.key: e.count / n_steps for e in rows if e.key in LAUNCH_CALLS}
-    busy = sum(e.self_device_time_total for e in rows
-               if e.device_type == DeviceType.CUDA) / 1e3 / n_steps
-    return sum(calls.values()), calls, busy
+    """``utils/profiling.launches_and_busy``: the host's launch calls a step
+    (and by name) and the card's busy ms a step over ``run()``."""
+    from improved_body_parts_tpu_torch.utils.profiling import launches_and_busy
+    return launches_and_busy(run, n_steps)
 
 
 def _state_equal(a: dict, b: dict) -> bool:
@@ -2496,8 +2484,10 @@ def spatial_axis(smi: str) -> dict:
     rows) against one process on the same global batch of 2, 2 fp32
     frozen-BN steps (parameters within 1e-5 of their move, losses) and 2
     bf16 train-mode steps (losses within 5%); ms a step, peak GiB a rank,
-    halo exchanges a step. Raises on any failure: nothing falls back to one
-    process."""
+    halo exchanges a step; and the reason the ranks' K-steps dispatch runs
+    eagerly (gloo cannot be captured; NCCL, which is captured, takes a
+    card a rank, and ``multi_card spatial`` holds its graph on four cards).
+    Raises on any failure: nothing falls back to one process."""
     import gc
 
     from improved_body_parts_tpu_torch.tools import multi_card

@@ -311,12 +311,18 @@ def shutdown(mesh: Mesh, *steps) -> None:
 
 
 def warm(mesh: Mesh) -> None:
-    """One eager all-reduce on the mesh's device, waited for: the
-    communicator exists before a CUDA graph captures the step's
-    collectives."""
+    """One eager all-reduce on the mesh's device in each group of this
+    rank, waited for: the group, then its spatial group, then its data
+    group (the same order on every rank; a rank meets only the ranks of
+    its own subgroups). Every communicator a step may use exists before a
+    CUDA graph captures the step's collectives: a spatial step exchanges
+    halos in the spatial group and takes a gathered level's BatchNorm
+    statistics in the data group."""
     if mesh.data_parallel:
         t = torch.ones(1, device=mesh.device)
-        dist.all_reduce(t, group=mesh.group)
+        for group in (mesh.group, mesh.spatial_group, mesh.data_group):
+            if group is not None:
+                dist.all_reduce(t, group=group)
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
 

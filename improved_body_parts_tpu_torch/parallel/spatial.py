@@ -49,7 +49,9 @@ import torch.nn.functional as F
 from improved_body_parts_tpu_torch.parallel.mesh import all_reduce_sum
 
 # exchanges made since the last ``reset_counts`` (a remat'd hourglass makes
-# its exchanges again in the backward pass, and they count again)
+# its exchanges again in the backward pass, and they count again). Counted
+# where a step calls them: a CUDA graph's capture records one step's and
+# adds them once a replay (``train_graph.GraphedStep``)
 counts = {"halo": 0, "gather": 0, "sum": 0}
 
 

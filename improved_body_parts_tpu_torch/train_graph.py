@@ -33,12 +33,22 @@ What capture needs from the step, and where it gets it:
   * remat (``torch.utils.checkpoint``, non-reentrant) captures too: the
     network draws no random numbers, so it keeps no RNG state to restore;
   * a data-parallel step (``mesh=`` with an NCCL group) captures its
-    collectives inside the graph: the communicator is made by one eager
-    all-reduce first (``parallel/mesh.warm``), the warm-up steps run on
-    the current stream (no collective on a side stream), and the capture
-    lets the process group's watchdog thread query the card
-    (``capture_error_mode="thread_local"``). A gloo group cannot be
-    captured: its steps run eagerly, as on the CPU (``eager_reason``).
+    collectives inside the graph: every communicator the step may use (the
+    mesh's group, and on a spatial mesh its spatial and data subgroups) is
+    made by one eager all-reduce each first (``parallel/mesh.warm``), the
+    warm-up steps run on the current stream (no collective on a side
+    stream), and the capture lets the process group's watchdog thread
+    query the card (``capture_error_mode="thread_local"``). A gloo group
+    cannot be captured: its steps run eagerly, as on the CPU
+    (``eager_reason``);
+  * a step sharded into bands of rows (``parallel/spatial.py``) captures
+    its halo exchanges, row gathers and spatial sums with the rest: each is
+    one all-reduce over the spatial group of a buffer allocated inside the
+    step (from the graph's pool under capture), with every size read from
+    shapes, never from a tensor's value. The exchanges a step are counted
+    by Python code, which runs at the capture and not at a replay: the
+    capture records them a step (``GraphedStep.exchanges``) and each replay
+    adds them to ``parallel/spatial.counts``, on the host.
 
 tests/test_torch_train_graph.py holds replayed steps bit for bit against
 eager steps on the card.
@@ -51,6 +61,7 @@ from typing import Callable, Optional
 
 import torch
 
+from improved_body_parts_tpu_torch.parallel import spatial
 from improved_body_parts_tpu_torch.parallel.mesh import warm
 
 WARMUP_STEPS = 2
@@ -117,6 +128,7 @@ class GraphedStep:
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         mode = "thread_local" if data_parallel else "global"
+        before = dict(spatial.counts)
         with torch.cuda.graph(self.graph, pool=pool, capture_error_mode=mode):
             m = step_fn(state, *fixed, *args, self.lr)
             dt = m["loss"].dtype
@@ -124,6 +136,10 @@ class GraphedStep:
                                         m["skipped"].to(dt)])
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
+        # the exchanges of one step, recorded and not yet run: a replay runs
+        # (and counts) them
+        self.exchanges = {k: spatial.counts[k] - before[k] for k in before}
+        spatial.counts.update(before)
 
     def replay_chunk(self, state, fixed: tuple, chunk: tuple,
                      lrs: torch.Tensor) -> torch.Tensor:
@@ -150,6 +166,8 @@ class GraphedStep:
             self.lr.copy_(lrs[k])
             self.graph.replay()
             out[k].copy_(self.metrics)
+        for key, n_step in self.exchanges.items():
+            spatial.counts[key] += n * n_step
         return out
 
 
@@ -162,12 +180,12 @@ class MultiStep:
     first call (``GraphedStep``, in ``pool``) and replayed; on the CPU the
     steps run eagerly (the plain version). ``graphed`` is the capture, or
     None before the first call on the card. ``mesh``: the data-parallel
-    mesh of the step, if any; ``eager_reason`` says why steps on the card
-    run eagerly (a gloo group, or a step sharded into bands of rows:
-    ``spatial``), else None."""
+    mesh of the step, if any (a spatial one too: bands of rows are
+    captured as whole images are); ``eager_reason`` says why steps on the
+    card run eagerly (a gloo group), else None."""
 
     def __init__(self, step_fn: Callable, n_fixed: int = 0, pool=None,
-                 mesh=None, spatial: bool = False):
+                 mesh=None):
         self.step_fn = step_fn
         self.n_fixed = n_fixed
         self.pool = pool
@@ -179,10 +197,6 @@ class MultiStep:
             self.eager_reason = ("the gloo process group cannot be captured "
                                  "in a CUDA graph: K steps a dispatch run "
                                  "eagerly")
-        elif spatial:
-            self.eager_reason = ("a step sharded into bands of rows is not "
-                                 "captured (its halo exchanges): K steps a "
-                                 "dispatch run eagerly")
 
     def __call__(self, state, *args) -> dict:
         fixed, stacked = args[:self.n_fixed], args[self.n_fixed:-1]

@@ -57,7 +57,9 @@ summed over the spatial ranks and averaged over the data slices, in the
 same one all-reduce. The resident and K-steps steps run with the batch on
 the data axis and replicated over the spatial one (the JAX dry run's
 ``P("data")``), and a sharded store shards over the data axis
-(``device_arrays(shard=(data_index, data_size))``).
+(``device_arrays(shard=(data_index, data_size))``);
+``make_multi_train_step(shard_spatial=True)`` takes bands of rows, K steps
+a dispatch on the CUDA graph as on the data axis.
 """
 
 from __future__ import annotations
@@ -323,13 +325,16 @@ def make_multi_train_step(model: torch.nn.Module, cfg: CanonicalConfig,
     steps. With a data-parallel ``mesh`` the collectives are inside the
     graph (NCCL); a gloo group cannot be captured, so its n steps run
     eagerly (``MultiStep.eager_reason``). On a spatial mesh the batch is
-    replicated over the spatial axis unless ``shard_spatial``, whose step
-    runs eagerly (its exchanges are not captured). reference: JAX
-    ``train_lib.make_multi_train_step`` (one ``lax.scan`` of the n steps)."""
+    replicated over the spatial axis unless ``shard_spatial``: then imgs
+    and mask are this rank's band of the rows (dim 2 of the chunk,
+    ``staged_chunks(shard_spatial=True)``), and the halo exchanges are
+    captured with the rest of the step. reference: JAX
+    ``train_lib.make_multi_train_step`` (one ``lax.scan`` of the n steps)
+    with the chunk on ``chunked_batch_sharding(mesh, shard_spatial)``."""
     return MultiStep(make_train_step(model, cfg, use_focal=use_focal,
                                      freeze_bn=freeze_bn, compact_gt=compact_gt,
                                      mesh=mesh, shard_spatial=shard_spatial),
-                     n_fixed=0, pool=pool, mesh=mesh, spatial=shard_spatial)
+                     n_fixed=0, pool=pool, mesh=mesh)
 
 
 def make_multi_resident_train_step(model: torch.nn.Module, cfg: CanonicalConfig,

@@ -16,7 +16,10 @@ Here:
     written as a Chrome trace (``trace.json``) into ``logdir``;
   * ``flops_of(fn, *args)``: ``torch.utils.flop_counter.FlopCounterMode``'s
     count for one call (2 x multiply-accumulates of every conv and matmul);
-  * ``model_stats``: parameters and FLOPs of a ``PoseNet`` forward.
+  * ``model_stats``: parameters and FLOPs of a ``PoseNet`` forward;
+  * ``launches_and_busy(run, n)``: the host's calls that start work on the
+    card (``LAUNCH_CALLS``) a step, by name, and the card's busy ms a
+    step, from ``torch.profiler`` over ``run()`` (n steps).
 
 ``FlopCounterMode`` sees the operators dispatched through PyTorch. The int8
 convs of a ``quant="int8"`` model are launched through ctypes on the card
@@ -33,6 +36,12 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+
+# the host's calls that start work on the card, counted by the profiler
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
 
 
 class AverageMeter:
@@ -113,6 +122,24 @@ def trace(logdir: str = "torch-trace"):
         yield prof
         sync()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def launches_and_busy(run: Callable, n_steps: int):
+    """torch.profiler over ``run()`` (``n_steps`` steps, no sync inside):
+    (the host's launch calls a step, those calls a step by name, the card's
+    busy ms a step: its kernels' and copies' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    calls = {e.key: e.count / n_steps for e in rows if e.key in LAUNCH_CALLS}
+    busy = sum(e.self_device_time_total for e in rows
+               if e.device_type == DeviceType.CUDA) / 1e3 / n_steps
+    return sum(calls.values()), calls, busy
 
 
 def flops_of(fn: Callable, *args, **kwargs) -> float:

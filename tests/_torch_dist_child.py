@@ -6,12 +6,16 @@ on the CPU, and returns what each wrote.
 
 The spec (``torch.save``d by ``run_ranks``) holds the port's config, the
 state payload to start from, the BN mode and dtype, the device (default
-the CPU; "cuda:0" puts every rank on the one card, still over gloo), and
+the CPU; "cuda:0" puts every rank on the one card, "cuda" a card a rank;
+on a card cuDNN is held to deterministic kernels), the backend (default
+gloo; "nccl" for ranks a card each, whose single steps run under
+``torch.cuda.set_sync_debug_mode("error")``), and
 either global batches (``kind="train"``: (imgs, mask, joints, mask_all) a
 step, the compact feed) or a resident store with global plans
 (``kind="resident"``: the store's images, and plans made with
-``store_shards=world``; ``k`` > 1 takes them k steps a dispatch). With
-``spatial`` S the ranks lay out as data world/S × spatial S
+``store_shards=world``); with ``k`` > 1 either kind takes its steps k a
+dispatch (``make_multi_train_step``, ``make_multi_resident_train_step``).
+With ``spatial`` S the ranks lay out as data world/S × spatial S
 (``make_mesh(spatial=S)``) and each ``train`` step takes this rank's band
 of the images' and the mask's rows. ``kind="spatial_ops"`` runs
 ``tests/_torch_spatial_cases.py`` instead. Each
@@ -88,9 +92,15 @@ def main(spec_path, out_dir, rank, world, port):
 
     torch.set_num_threads(1)
     spec = torch.load(spec_path, weights_only=False)
+    backend = spec.get("backend", "gloo")
     device = mesh_lib.initialize_multihost(f"localhost:{port}", world, rank,
                                            device=spec.get("device", "cpu"),
-                                           backend="gloo", timeout_s=120)
+                                           backend=backend, timeout_s=120)
+    if device.type == "cuda":
+        # the same kernels in every run of a step
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     if spec["kind"] == "spatial_ops":
         from tests import _torch_spatial_cases
         out = _torch_spatial_cases.run(rank, world)
@@ -98,6 +108,7 @@ def main(spec_path, out_dir, rank, world, port):
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         return
     mesh = mesh_lib.make_mesh(spatial=spec.get("spatial", 1))
+    mesh_lib.warm(mesh)         # every group of the rank, in the same order
     spatial = mesh.spatial > 1
     cfg, dtype = spec["config"], getattr(torch, spec["dtype"])
     model = PoseNet(cfg.model, compute_dtype=torch.float32,
@@ -110,16 +121,48 @@ def main(spec_path, out_dir, rank, world, port):
     local = lambda a: torch.from_numpy(np.ascontiguousarray(
         a[mesh_lib.process_batch_slice(a.shape[0], mesh=mesh)])).to(device)
     metrics = []
-    if spec["kind"] == "train":
+    if spec["kind"] == "train" and spec.get("k", 1) > 1:
+        # k steps a dispatch (train_graph.MultiStep; eager under gloo), the
+        # chunks staged as the trainer stages them: this rank's slice of
+        # each batch, and on a spatial mesh its band of the images' and the
+        # mask's rows (the joints and mask_all whole)
+        k = spec["k"]
+        step = train_lib.make_multi_train_step(model, cfg, freeze_bn=freeze,
+                                               compact_gt=True, mesh=mesh,
+                                               shard_spatial=spatial)
+        mine = lambda a: a[mesh_lib.process_batch_slice(a.shape[0], mesh=mesh)]
+        banded = mesh_lib.staged_chunks(
+            mesh, [(mine(b[0]), mine(b[1])) for b in spec["batches"]], k,
+            shard_spatial=spatial)
+        whole = mesh_lib.staged_chunks(
+            mesh, [(mine(b[2]), mine(b[3])) for b in spec["batches"]], k)
+        for lo, ((n, (imgs, mask)), (_, heat)) in zip(
+                range(0, len(spec["batches"]), k), zip(banded, whole)):
+            m = step(state, imgs, mask, heat,
+                     torch.tensor(spec["lrs"][lo:lo + n], dtype=dtype,
+                                  device=device))
+            metrics += [{key: v[i] for key, v in m.items()} for i in range(n)]
+    elif spec["kind"] == "train":
         step = train_lib.make_train_step(model, cfg, freeze_bn=freeze,
                                          compact_gt=True, mesh=mesh)
-        for (imgs, mask, joints, mask_all), lr in zip(spec["batches"], spec["lrs"]):
+        staged = []
+        for imgs, mask, joints, mask_all in spec["batches"]:
             # on a spatial mesh: this rank's band of the images' and the
             # mask's rows; the joints and mask_all whole
             imgs, mask = mesh_lib.shard_batch(mesh, (imgs, mask),
                                               shard_spatial=spatial)
-            metrics.append(step(state, imgs, mask,
-                                (local(joints), local(mask_all)), lr))
+            staged.append((imgs, mask, (local(joints), local(mask_all))))
+        # over NCCL a host sync or a copy from the host inside a step raises
+        # (gloo copies CUDA tensors through the host)
+        checked = device.type == "cuda" and backend == "nccl"
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b, lr in zip(staged, spec["lrs"]):
+                metrics.append(step(state, *b, lr))
+        finally:
+            if checked:
+                torch.cuda.set_sync_debug_mode(0)
     else:
         st = spec["store"]
         store = ResidentStore(st["images"], None, None, st["joints"], st["objpos"],

@@ -55,21 +55,43 @@ def test_realistic_packed_buffers_match_jax(pair):
     assert n > 0, "the comparison saw no peaks"
 
 
+def jax_bench_line(fps: float) -> dict:
+    """The line the JAX ``bench.py`` prints for ``fps`` (its :241-246)."""
+    return {"metric": "e2e_fps_512_flipTTA_net_grouping",
+            "value": round(fps, 2), "unit": "frames/s",
+            "vs_baseline": round(fps / jbench.BASELINE_E2E_FPS, 2)}
+
+
 @pytest.mark.parametrize("arm", [[], ["--fused-peaks"], ["--quantize", "int8"]],
                          ids=["default", "fused", "int8"])
-def test_bench_main_prints_the_jax_line(tiny_cli, capsys, arm):
+def test_bench_main_prints_the_jax_line(tiny_cli, capsys, monkeypatch, arm):
+    """The printed line is the JAX construction of the unrounded fps that
+    ``main`` measured (recorded by a spy on ``result_line``), whatever
+    that fps is."""
+    seen = []
+
+    def spy(fps):
+        seen.append(fps)
+        return result_line(fps)
+
+    result_line = tbench.result_line
+    monkeypatch.setattr(tbench, "result_line", spy)
     rc = tbench.main(["--device", "cpu", "--config", NAME,
                       "--image-size", "64", *arm])
     out = capsys.readouterr()
     assert rc == 0
     lines = out.out.strip().splitlines()
     assert len(lines) == 1, out.out            # stdout: the JSON line alone
-    line = json.loads(lines[0])
-    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
-    assert line["metric"] == "e2e_fps_512_flipTTA_net_grouping"
-    assert line["unit"] == "frames/s" and line["value"] > 0
-    assert line["vs_baseline"] == round(line["value"] / 7.3, 2)
+    assert len(seen) == 1 and seen[0] > 0
+    assert json.loads(lines[0]) == jax_bench_line(seen[0])
     assert "grouping inline:" in out.err and "(device: cpu)" in out.err
+
+
+@pytest.mark.parametrize("fps", [0.9127, 7.3, 42.68])
+def test_result_line_is_the_jax_construction(fps):
+    """At 0.9127 fps / 7.3 rounds to 0.13 and round(0.91 / 7.3, 2) to 0.12:
+    the baseline ratio is taken of the unrounded fps, as in JAX."""
+    assert tbench.result_line(fps) == jax_bench_line(fps)
 
 
 @pytest.mark.parametrize("quant", [[], ["--quantize", "int8"]], ids=["bf16", "int8"])

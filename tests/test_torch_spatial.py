@@ -19,6 +19,9 @@ spatial ``Mesh`` of ``parallel/mesh.py``), on gloo ranks on the CPU.
     spatial=2)``.
   * ``DeviceHeatmapper.render`` of a row range equals those rows of the
     whole render, bit for bit.
+  * The K-steps dispatch of a banded step runs eagerly only where a
+    resident one does: under gloo, with gloo's reason; on a stand-in NCCL
+    mesh on a CUDA card no reason keeps either from the CUDA graph.
   * The tiny train step (nstack 2, 64², remat) on 2 ranks as data 1 ×
     spatial 2 against the port's own one-process step on the same batch:
     float64 train-mode BN, two steps, within 1e-6 of each tensor's scale,
@@ -100,17 +103,37 @@ def test_staged_chunk_rows_are_the_jax_shards():
         np.testing.assert_array_equal(chunk.numpy(), whole[index[dev]])
 
 
-def test_a_spatially_sharded_dispatch_runs_eagerly():
-    """K steps a dispatch of a step sharded into bands are not captured: the
-    step says why, as under gloo; the resident one keeps whole images."""
+class _StandInMesh(mesh_lib.Mesh):
+    """Rank 1 of a data 1 × spatial 2 mesh on a CUDA card whose group is
+    of ``_backend`` (no process group: the dispatch reads only the mesh)."""
+    _backend = "nccl"
+
+    @property
+    def backend(self):
+        return self._backend
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_a_banded_dispatch_runs_eagerly_only_under_gloo(monkeypatch, backend):
+    """K steps a dispatch of a step sharded into bands of rows are captured
+    as the data axis's are: on a CUDA card over NCCL no reason keeps them
+    eager; over gloo the gloo reason does, for the banded step and the
+    resident one (whole images) alike."""
     _, cfg = _configs()
     model = port_model(cfg, torch.float32)
-    mesh = _rank_mesh(1)
-    multi = train_lib.make_multi_train_step(model, cfg, mesh=mesh,
-                                            shard_spatial=True)
-    assert "bands of rows" in multi.eager_reason
-    assert train_lib.make_multi_resident_train_step(
-        model, cfg, mesh=mesh).eager_reason is None
+    monkeypatch.setattr(_StandInMesh, "_backend", backend)
+    mesh = _StandInMesh((torch.device("cuda", 0),), rank=1, world=2,
+                        group=object(), spatial=2)
+    assert mesh.data_parallel and mesh.backend == backend
+    banded = train_lib.make_multi_train_step(model, cfg, mesh=mesh,
+                                             shard_spatial=True)
+    resident = train_lib.make_multi_resident_train_step(model, cfg, mesh=mesh)
+    if backend == "gloo":
+        assert banded.eager_reason == resident.eager_reason == (
+            "the gloo process group cannot be captured in a CUDA graph: K "
+            "steps a dispatch run eagerly")
+    else:
+        assert banded.eager_reason is None and resident.eager_reason is None
 
 
 @pytest.mark.parametrize("S", [2, 4])
